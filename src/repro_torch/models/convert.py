@@ -1,0 +1,24 @@
+"""Carry the reference's JAX parameters across to the port, bit-exactly."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        # an ml_dtypes array: read its bits through a 16-bit view, so the
+        # port never imports ml_dtypes
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def params_from_jax(np_params, device) -> dict:
+    """The JAX parameter pytree, as nested dicts of NumPy arrays (e.g.
+    ``jax.tree_util.tree_map(np.asarray, params)``), -> the same nested dict
+    of torch tensors on ``device``, bit for bit."""
+    if isinstance(np_params, dict):
+        return {k: params_from_jax(v, device) for k, v in np_params.items()}
+    return _tensor(np.asarray(np_params), device)
