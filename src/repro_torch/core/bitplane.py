@@ -8,8 +8,8 @@ exactly the partial-plane dynamic-quantization fetch of Fig. 5.
 
 The NumPy half is the reference's, copied (the host-side compressed store
 runs on it).  The port imports no ``ml_dtypes``: bf16 values cross into
-NumPy as their ``uint16`` bit patterns (:func:`to_uint` on a torch tensor,
-then ``.numpy()``), and ``from_uint_np`` hands bf16 back the same way.
+NumPy as their ``uint16`` bit patterns (:func:`bf16_to_numpy`), and
+``from_uint_np`` hands bf16 back the same way.
 """
 
 from __future__ import annotations
@@ -118,18 +118,8 @@ def reaggregate_np(planes: np.ndarray, bits: int, keep: int | None = None) -> np
 # ---------------------------------------------------------------------------
 
 
-def to_uint(x: torch.Tensor) -> torch.Tensor:
-    """bf16 tensor -> int32 tensor of its raw bit patterns in [0, 2**16).
-
-    torch has no uint16 arithmetic on every device, so the patterns ride in
-    int32 (same values, room for shifts)."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"to_uint expects bfloat16, got {x.dtype}")
-    return x.view(torch.int16).to(torch.int32) & 0xFFFF
-
-
 def from_uint(u: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`to_uint`: raw 16-bit patterns -> bf16 tensor."""
+    """Raw 16-bit patterns (any integer dtype) -> bf16 tensor."""
     return u.to(torch.int32).to(torch.int16).view(torch.bfloat16)
 
 

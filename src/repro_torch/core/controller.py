@@ -3,7 +3,7 @@
 ``MemoryController`` is the host-side functional model of the enhanced
 controller: it owns the weight store and the KV-page store, performs the
 bit-plane/clustering transforms on writes, serves (possibly partial-precision)
-reads, and logs every DRAM-side access so a DRAM simulator can replay the
+reads, and logs every DRAM-side access so :mod:`repro_torch.memsim` can replay the
 trace through the DDR5 timing/energy model.
 
 Semantics knobs mirror the paper's hardware config: codec (LZ4/ZSTD), block

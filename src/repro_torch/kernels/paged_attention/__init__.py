@@ -4,4 +4,5 @@ from repro_torch.kernels.paged_attention.ops import (  # noqa: F401
     pack_kv_planes,
     paged_attention_fused,
     paged_attention_rung,
+    unpack_kv,
 )

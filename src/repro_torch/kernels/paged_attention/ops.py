@@ -13,6 +13,9 @@ strategies (``kernel=``):
   unnormalised partials are merged here, in plain torch, as in the
   reference.  Also the fallback when S is not a page multiple.
 
+``pack_kv_planes`` / ``unpack_kv`` move a KV cache between bf16 rows and
+its bit-planes through the bit-plane pack and unpack kernels.
+
 Dispatch: a CPU tensor takes the plain PyTorch version in :mod:`.ref`; a
 CUDA tensor launches the hand-written kernel (:mod:`.kernel`) or raises.
 There is no other route.
@@ -22,13 +25,25 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.bitplane.ops import pack_raw, unpack_raw
 from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.kernels.paged_attention import ref as R
 
 
 def pack_kv_planes(kv: torch.Tensor, bits: int = 16) -> torch.Tensor:
-    """(B, S, Hkv, hd) bf16 -> (bits, B, S, Hkv, hd//8) uint8 (store path)."""
-    return R.pack_kv_ref(kv, bits)
+    """(..., hd) bf16 -> (bits, ..., hd//8) uint8 (store path): the flat
+    bit-plane pack of the row-major values (the bit-plane pack kernel on a
+    CUDA tensor), each plane shaped like ``kv``'s rows."""
+    u = kv.to(torch.bfloat16).contiguous().view(torch.int16).reshape(-1)
+    return pack_raw(u, bits).reshape((bits,) + kv.shape[:-1] + (kv.shape[-1] // 8,))
+
+
+def unpack_kv(planes: torch.Tensor, keep: int, bits: int = 16) -> torch.Tensor:
+    """(bits, ..., hd//8) planes -> (..., hd) bf16 rebuilt from planes
+    [0, keep) (the bit-plane unpack kernel on a CUDA tensor); the low planes
+    read as zero."""
+    u = unpack_raw(planes[:keep].reshape(keep, -1), bits, keep, torch.int16)
+    return u.view(torch.bfloat16).reshape(planes.shape[1:-1] + (planes.shape[-1] * 8,))
 
 
 def _on_cpu(t: torch.Tensor) -> bool:

@@ -3,7 +3,9 @@
 KV-plane layout: planes (bits, B, S, Hkv, hd//8) uint8 — bit i (0 = MSB) of
 K[b, s, h, d] at planes[i, b, s, h, d//8] bit (7 - d%8).
 
-``pack_kv_ref`` / ``unpack_kv_ref`` port the reference's jnp oracles.
+``pack_kv_ref`` / ``unpack_kv_ref`` port the reference's jnp oracles as
+the flat bit-plane pack and unpack (``kernels/bitplane/ref.py``) of the
+row-major values.
 ``paged_attention_fused_ref`` / ``paged_attention_rung_ref`` hold the same
 math as the CUDA kernels in ``csrc/paged_attention.cu``: each token's key
 and value are rebuilt from planes [0, keep) of its page, scores are taken in
@@ -20,27 +22,24 @@ import math
 
 import torch
 
-from repro_torch.core.bitplane import from_uint, to_uint
+from repro_torch.core.bitplane import from_uint
+from repro_torch.kernels.bitplane.ref import pack_ref, unpack_ref
 
 NEG_INF = -1e30
 
 
 def pack_kv_ref(kv: torch.Tensor, bits: int = 16) -> torch.Tensor:
-    """(..., hd) bf16 -> (bits, ..., hd//8) uint8."""
-    u = to_uint(kv.to(torch.bfloat16))
-    shifts = torch.arange(bits - 1, -1, -1, dtype=torch.int32, device=kv.device)
-    bm = (u[None] >> shifts.view((bits,) + (1,) * u.dim())) & 1
-    g = bm.reshape(bm.shape[:-1] + (bm.shape[-1] // 8, 8))
-    byte_w = torch.tensor([1 << (7 - i) for i in range(8)], dtype=torch.int32,
-                          device=kv.device)
-    return (g * byte_w).sum(-1).to(torch.uint8)
+    """(..., hd) bf16 -> (bits, ..., hd//8) uint8: the flat bit-plane pack
+    of the row-major values, each plane reshaped like ``kv``."""
+    u = kv.to(torch.bfloat16).contiguous().view(torch.int16).reshape(-1)
+    return pack_ref(u, bits).reshape((bits,) + kv.shape[:-1] + (kv.shape[-1] // 8,))
 
 
 def unpack_kv_ref(planes: torch.Tensor, keep: int, bits: int = 16) -> torch.Tensor:
     """(bits, ..., hd//8) planes -> (..., hd) bf16, low planes zeroed
     (truncation to the top ``keep`` planes)."""
-    u = _planes_to_uint(planes[:keep], torch.arange(keep, device=planes.device), bits)
-    return from_uint(u)
+    u = unpack_ref(planes[:keep].reshape(keep, -1), bits, keep, torch.int16)
+    return u.view(torch.bfloat16).reshape(planes.shape[1:-1] + (planes.shape[-1] * 8,))
 
 
 def _planes_to_uint(planes: torch.Tensor, plane_idx: torch.Tensor, bits: int,

@@ -27,8 +27,8 @@ import torch
 from repro_torch.kernels.paged_attention.ops import (
     batched_ladder_paged_attention,
     pack_kv_planes,
+    unpack_kv,
 )
-from repro_torch.kernels.paged_attention.ref import unpack_kv_ref
 from repro_torch.models.layers import apply_rope, he_init, rope_angles
 
 NEG_INF = -1e30
@@ -151,8 +151,8 @@ def _bitplane_cache_step(q, k, v, hm, cache, *, pos, cache_len, kv_planes,
             raise ValueError(f"prefill chunk ends at {end} past the cache ({kp.shape[2]})")
         # the slot's whole S rows, as the reference: rows past `end` are
         # masked, but the attention sums then run over the same length
-        kd = unpack_kv_ref(kp, bits, bits)
-        vd = unpack_kv_ref(vp, bits, bits)
+        kd = unpack_kv(kp, bits, bits)
+        vd = unpack_kv(vp, bits, bits)
         kd[:, cache_len:end] = k.to(kd.dtype)
         vd[:, cache_len:end] = v.to(vd.dtype)
         out = flash_attention(q, kd, vd, hm, q_pos=pos, kv_valid=end)

@@ -48,7 +48,7 @@ from repro_torch.core.quantization import (
     page_minmax,
     quest_scores,
 )
-from repro_torch.kernels.paged_attention.ref import unpack_kv_ref
+from repro_torch.kernels.paged_attention.ops import unpack_kv
 from repro_torch.memctl import CompressionEngineRuntime, Job, JobClass
 from repro_torch.models.transformer import bitplane_cache_from_dense
 from repro_torch.serving.kv_cache import (
@@ -288,7 +288,7 @@ class KVBackend(abc.ABC):
             for name in ("k_planes", "v_planes"):
                 # (ls, bits, t, Hkv, hd8) -> planes first, layers as batch
                 pl = self._cache[name][:ls, :, slot_id, t0:t1].movedim(1, 0)
-                dense = unpack_kv_ref(pl, pl.shape[0], pl.shape[0])
+                dense = unpack_kv(pl, pl.shape[0], pl.shape[0])
                 out.append(bf16_to_numpy(dense.reshape(ls, t, -1)))
             return tuple(out)
         return tuple(
@@ -432,7 +432,7 @@ class KVBackend(abc.ABC):
         if self.device_kv != "bitplane":
             return self._cache["k"][-1, slot_id, t0:t1]
         pl = self._cache["k_planes"][-1][:, slot_id, t0:t1]
-        return unpack_kv_ref(pl, pl.shape[0], pl.shape[0])
+        return unpack_kv(pl, pl.shape[0], pl.shape[0])
 
     def _set_device_row(self, slot_id: int, st: SlotState,
                         row: np.ndarray) -> None:

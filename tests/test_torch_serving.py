@@ -59,6 +59,15 @@ COMPRESSED = ("kv_stored_bytes", "kv_logical_bytes", "kv_fetch_physical",
 # can round one step differently; one bf16 step near |x| = 4 is 0.03.
 LOGITS_ATOL = 5e-2
 
+# Plain forward.  XLA's compiled norm on the CPU sums the mean of squares in
+# 32-wide windows and takes XLA's own float32 rsqrt, whose last bit differs
+# from torch.rsqrt for about a third of inputs and depends on the CPU's
+# vector width; a norm output on a bf16 rounding boundary then rounds one
+# step apart and the MLP spreads it.  Bit-equality cannot hold on every
+# machine: every element stays within one bf16 step of the reference, and
+# at most this share differs at all (0.65% measured on the 2-layer stack).
+FORWARD_DIFF_SHARE = 0.02
+
 
 @pytest.fixture(scope="module")
 def models():
@@ -107,7 +116,13 @@ def test_plain_forward_matches_reference(models):
                             jnp.asarray(pos))
     xt = TT.run_stack(tp, tm.cfg, embed_apply(tp["embed"], torch.from_numpy(toks).long()),
                       torch.from_numpy(pos))
-    np.testing.assert_array_equal(np.asarray(xj, np.float32), xt.float().numpy())
+    want, got = np.asarray(xj, np.float32), xt.float().numpy()
+    # one bf16 step at the stack's largest magnitude (bf16 keeps 8
+    # significant bits): the most a single flipped rounding can move a value
+    step = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    diff = np.abs(got - want)
+    assert diff.max() <= step, (diff.max(), step)
+    assert np.mean(diff > 0) <= FORWARD_DIFF_SHARE, np.mean(diff > 0)
 
 
 @pytest.mark.parametrize("kernel", ["fused", "rung"])
