@@ -10,17 +10,20 @@ nothing of JAX and nothing of the JAX package ``repro``.
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
-1. The card's name and power limit; build the three kernel libraries
+1. The card's name and power limit; build the four kernel libraries
    from ``src/repro_torch/csrc`` (paged attention, bit-plane pack/unpack,
-   bit-plane matmul; one ``nvcc`` each, all started together) and report
-   the build times and ptxas register lines.
+   bit-plane matmul, the SSD scan; one ``nvcc`` each, all started
+   together) and report the build times and ptxas register lines.
 2. Each kernel against its plain PyTorch version on the card.  Paged
    attention at the serving shapes of full-width SmolLM-135M (B=8,
    S=1024, Hkv=3, rep=3, hd=64): mixed plane counts {8, 12, 16} with
    keep-0 pages, ragged valid lengths and one row with nothing valid.
    Pack and unpack bit for bit at the decode token rows, one slot's full
    cache per layer (keep 16, 12, 8, 4) and an odd length; the bit-plane
-   matmul at the quickstart's shape and every SmolLM-135M projection.
+   matmul at the quickstart's shape and every SmolLM-135M projection; the
+   SSD scan at the full-width Mamba2-1.3B prefill shape (B=4, L=1024,
+   H=64, P=64, N=128, Q=256) with a nonzero initial state and realistic
+   dt·A, at a ragged L=1000 and at L=37 (below one chunk).
 3. Serve 16 requests through ``ContinuousScheduler`` on full-width
    SmolLM-135M (random weights from a seeded ``torch.Generator``, 30
    layers) with bit-plane device KV and a precision ladder, once through
@@ -34,7 +37,15 @@ Phases (any failure exits non-zero; no phase's error is caught):
 4. The paper-pipeline quickstart (``repro_torch.quickstart``) on the card,
    launch counts reset before and read after: its byte counts must equal
    the CPU run's and its matmul error the plain version's.
-5. Kernel times (CUDA events) beside their bound, the plain version's
+5. Full-width Mamba2-1.3B (48 layers, random weights from a seeded
+   ``torch.Generator``) through ``make_prefill_step`` on 4 prompts of 1024
+   tokens, then 32 greedy ``make_serve_step`` steps, the SSD launch count
+   reset before and read after each (48 per prefill, 0 per decode step);
+   prefill and decode times, a profiler window over one prefill (device
+   time and the SSD kernel's share); teacher-forced prefill logits through
+   the kernel against the same prefill through the plain SSD, and the
+   reference's prefill/decode consistency check.
+6. Kernel times (CUDA events) beside their bound, the plain version's
    time and one PyTorch call's where one computes the same function,
    printed as one ``{"kernels": [...]}`` line.
 
@@ -60,7 +71,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
 
-SOURCES = ("paged_attention.cu", "bitplane.cu", "bitplane_matmul.cu")
+SOURCES = ("paged_attention.cu", "bitplane.cu", "bitplane_matmul.cu", "ssd.cu")
 
 B, S, HKV, REP, HD, BITS = 8, 1024, 3, 3, 64, 16
 LADDER = [(4, 16), (4, 12), (-1, 8)]
@@ -80,6 +91,39 @@ MATMUL_ATOL = MATMUL_RTOL = 1e-4
 QUICKSTART_REL_TOL = 1e-3
 # Full-width SmolLM-135M projections (K, N): q/o, k/v, gate/in, out
 PROJECTIONS = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
+# Mamba2-1.3B prefill: 4 prompts of 1024 tokens (4 chunks of 256), then
+# greedy decode steps
+SSM_B, SSM_L, SSM_STEPS = 4, 1024, 32
+# SSD kernel against its plain version, relative to max |y|: both compute
+# in float32 and differ only in the order of their sums (the kernel's
+# 64-token tiles and warp scan against torch.cumsum and cuBLAS), which
+# leaves errors near 1e-5 of the largest output; a wrong tile, mask or
+# state hand-over opens errors of order 1.
+SSD_REL_TOL = 1e-4
+# Mamba2, layer by layer (each layer fed the same input hidden state, so
+# nothing is amplified), in bf16 steps at the layer output's largest
+# magnitude.  Kernel against plain SSD: the scan's float32 differences can
+# flip a bf16 rounding of y, which the norm and the output projection
+# shrink; after that two roundings remain (the projection's bf16 result
+# and the residual sum), each worth up to one step, in few elements.
+# One recurrent decode step from the prefill cache of L-1 tokens against
+# the prefill's last token: the chunked and recurrent forms also round the
+# convolution at different points (per product in prefill, once in decode,
+# as in the reference), which moves the conv output by a step; that
+# reaches the layer output through the skip term and the scan on top of
+# the two roundings, in most elements (at most 2.0 steps measured on the
+# CPU over six prompt sets of the smoke model, 1.25 at 48 layers of width
+# 256).
+LAYER_KERNEL_STEPS, LAYER_KERNEL_SHARE = 2, 0.02
+LAYER_DECODE_STEPS = 4
+# Mamba2 logits end to end, relative to max |logit|: the random-weight
+# 48-layer stack amplifies float32 rounding.  On a 48-layer Mamba2 of width
+# 256 on the CPU, the plain SSD against itself at Q=128 (the same function,
+# summed in another order) moved the logits by 5% of max |logit|, and
+# prefill against decode by 3%; the run prints the same floor at full
+# width.  A wrong state hand-over or tile moves them by the order of max
+# |logit| itself.
+SSM_LOGITS_RTOL_OF_MAX = 0.10
 
 
 def log(msg: str) -> None:
@@ -120,6 +164,7 @@ def build_kernels() -> None:
     from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.bitplane_matmul import kernel as MK
     from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.ssd import kernel as SK
 
     def one(source):
         t0 = time.perf_counter()
@@ -134,7 +179,7 @@ def build_kernels() -> None:
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
-    for mod in (K, BK, MK):
+    for mod in (K, BK, MK, SK):
         mod._library()
     log(f"phase 1: {len(SOURCES)} libraries built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -272,6 +317,48 @@ def check_bitplane_kernels(torch, dev) -> dict:
     log(f"phase 2: bit-plane kernels match plain on the card (pack/unpack "
         f"bit-exact); bitplane_matmul max abs err {worst:.3g}")
     return errs
+
+
+def ssd_case(torch, dev, gen, l: int, h0: bool = True):
+    """SSD inputs at Mamba2-1.3B's widths (B=4, H=64, P=64, N=128): dt in
+    [1e-3, 1e-1], A = -exp(a_log) with exp(a_log) in [1, 16] as
+    ``ssm_params`` draws them, so dt·A reaches -1.6 and a chunk's cumsum
+    some -400; unit-normal b, c and x·dt scaled by dt."""
+    h, p, n = 64, 64, 128
+    a = -(torch.rand((h,), generator=gen, device=dev) * 15 + 1)
+    dt = torch.rand((SSM_B, l, h), generator=gen, device=dev) * 0.099 + 1e-3
+    xdt = torch.randn((SSM_B, l, h, p), generator=gen, device=dev) * dt[..., None]
+    b = torch.randn((SSM_B, l, h, n), generator=gen, device=dev)
+    c = torch.randn((SSM_B, l, h, n), generator=gen, device=dev)
+    state = torch.randn((SSM_B, h, n, p), generator=gen, device=dev) if h0 else None
+    return xdt, dt * a, b, c, state
+
+
+def check_ssd_kernel(torch, dev) -> tuple:
+    """The SSD kernel against its plain version on the same CUDA inputs,
+    within SSD_REL_TOL of max |y| (and of max |h_final|): the prefill
+    shape (L=1024, nonzero h0), a ragged L=1000 and L=37 below one chunk.
+    Returns (max abs err at the prefill shape, its inputs)."""
+    from repro_torch.kernels.ssd import ops as SO
+    from repro_torch.kernels.ssd import ref as SR
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for l, h0 in ((SSM_L, True), (1000, True), (37, False)):
+        case = ssd_case(torch, dev, gen, l, h0)
+        y, hf = SO.ssd(*case, chunk=256)
+        y_r, hf_r = SR.ssd_ref(*case, chunk=256)
+        torch.cuda.synchronize()
+        err_y = float((y - y_r).abs().max())
+        err_h = float((hf - hf_r).abs().max())
+        rel_y = err_y / float(y_r.abs().max())
+        rel_h = err_h / float(hf_r.abs().max())
+        log(f"phase 2: ssd L={l} h0={h0}: max abs err y {err_y:.3g} (rel {rel_y:.3g}), "
+            f"h_final {err_h:.3g} (rel {rel_h:.3g}), tolerance {SSD_REL_TOL} of max")
+        if not (rel_y <= SSD_REL_TOL and rel_h <= SSD_REL_TOL):
+            raise AssertionError(f"ssd kernel differs from plain at L={l}")
+        out[l] = (max(err_y, err_h), case)
+    return out[SSM_L]
 
 
 def make_requests(n: int = 16):
@@ -500,6 +587,200 @@ def run_quickstart(torch) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def plain_ssd(q=None):
+    """Route the model's SSD scan through the plain PyTorch version on the
+    card (the kernel's reference), for one comparison; ``q`` overrides the
+    model's chunk length (the same function, summed in another order)."""
+    from repro_torch.kernels.ssd import ops as SO
+    from repro_torch.kernels.ssd import ref as SR
+
+    saved = SO.ssd
+    SO.ssd = lambda xdt, da, b, c, h0=None, chunk=256: SR.ssd_ref(
+        xdt, da, b, c, h0, q or chunk)
+    try:
+        yield
+    finally:
+        SO.ssd = saved
+
+
+def run_mamba(torch, dev) -> dict:
+    """Full-width Mamba2-1.3B through the step functions: prefill 4 seeded
+    prompts of 1024 tokens, then 32 greedy decode steps, with the SSD
+    launch count reset just before and read just after each; a profiler
+    window over one prefill; the kernel-versus-plain and the
+    prefill/decode consistency checks on the logits."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.launch import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+
+    cfg = get_config("mamba2-1.3b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"phase 5: mamba2-1.3b, {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B parameters initialised on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (SSM_B, SSM_L)).astype(np.int32)).to(dev)
+    prefill_step, serve_step = make_prefill_step(model), make_serve_step(model)
+
+    def prefill(tokens):
+        SK.reset_launches()
+        t0 = time.perf_counter()
+        tok, cache = prefill_step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if SK.LAUNCHES["ssd"] != cfg.n_layers:
+            raise AssertionError(f"prefill launched the SSD kernel {SK.LAUNCHES['ssd']} "
+                                 f"times, expected {cfg.n_layers}")
+        return tok, cache, secs
+
+    prefill(prompts)  # first call: cuBLAS handles, allocator warm-up
+    tok, cache, pre_s = prefill(prompts)
+    prefill_launches = SK.LAUNCHES["ssd"]
+    tokens = [tok]
+    SK.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(SSM_STEPS):
+        tok, cache = serve_step(params, tok, cache)
+        tokens.append(tok)
+    torch.cuda.synchronize()
+    dec_s = (time.perf_counter() - t0) / SSM_STEPS
+    decode_launches = SK.LAUNCHES["ssd"]
+    if decode_launches != 0:
+        raise AssertionError(f"decode steps launched the SSD kernel {decode_launches} times")
+    out = torch.stack(tokens, dim=1)
+    if out.dtype != torch.int32 or not bool(((out >= 0) & (out < cfg.vocab_padded)).all()):
+        raise AssertionError(f"greedy tokens out of range: {out}")
+    if int(cache["len"]) != SSM_L + SSM_STEPS:
+        raise AssertionError(f"cache len {int(cache['len'])} after {SSM_STEPS} steps")
+    log(f"phase 5: prefill {SSM_B}x{SSM_L} in {pre_s * 1e3:.2f} ms = "
+        f"{SSM_B * SSM_L / pre_s:.1f} tok/s ({prefill_launches} SSD launches); decode "
+        f"{dec_s * 1e3:.3f} ms/step = {SSM_B / dec_s:.1f} tok/s over {SSM_STEPS} steps "
+        f"({decode_launches} SSD launches); first greedy tokens {out[:, :6].tolist()}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill_step(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(t for t, _ in rows) / 1e3
+    ssd_ms = sum(t for t, k in rows if "ssd_kernel" in k) / 1e3
+    if busy_ms <= 0 or ssd_ms <= 0:
+        raise AssertionError("the profiler recorded no device time for the prefill")
+    top = sorted(rows, reverse=True)[:5]
+    log(f"phase 5 profile: one prefill {busy_ms:.3f} ms of device kernel time, SSD "
+        f"kernel {ssd_ms:.3f} ms ({ssd_ms / busy_ms:.3f} of it), host wall "
+        f"{pre_s * 1e3:.2f} ms (unprofiled; busy share {busy_ms / 1e3 / pre_s:.3f}); top "
+        f"kernels ms: " + "; ".join(f"{k[:40]} {t / 1e3:.3f}" for t, k in top))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            tok, cache = serve_step(params, tok, cache)
+        torch.cuda.synchronize()
+    dec_busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 4 / 1e3
+    log(f"phase 5 profile: one decode step {dec_busy:.3f} ms of device kernel time "
+        f"against {dec_s * 1e3:.3f} ms host wall (busy share {dec_busy / 1e3 / dec_s:.3f})")
+
+    # the same prompts through the kernel and through the plain SSD; the
+    # plain SSD at Q=128 against Q=256 is the stack's own rounding floor
+    logits_k, _ = model.prefill(params, {"tokens": prompts})
+    with plain_ssd():
+        logits_p, _ = model.prefill(params, {"tokens": prompts})
+    with plain_ssd(128):
+        logits_q, _ = model.prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    scale = float(logits_p.abs().max())
+    tol = SSM_LOGITS_RTOL_OF_MAX * scale
+    d_kp = float((logits_k - logits_p).abs().max())
+    d_floor = float((logits_q - logits_p).abs().max())
+    agree = float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean())
+    log(f"phase 5 kernel vs plain SSD: max|logit| {scale:.4f}, max|kernel-plain| "
+        f"{d_kp:.5f} (floor: plain Q=128 vs Q=256 {d_floor:.5f}), tolerance {tol:.5f}; "
+        f"argmax agree {agree:.3f}")
+    if not (math.isfinite(scale) and d_kp <= tol):
+        raise AssertionError("prefill logits through the SSD kernel disagree with plain")
+
+    # the reference's consistency check: decode(prefill(p[:, :-1]), p[:, -1])
+    # against prefill(p); the kernel's h_final is what decode continues from
+    _, short = model.prefill(params, {"tokens": prompts[:, :-1]})
+    logits_d, _ = model.decode(params, prompts[:, -1], short)
+    torch.cuda.synchronize()
+    d_pd = float((logits_d - logits_k).abs().max())
+    agree = float((logits_d.argmax(-1) == logits_k.argmax(-1)).float().mean())
+    log(f"phase 5 prefill/decode consistency: max|decode-prefill| {d_pd:.5f}, "
+        f"tolerance {tol:.5f}; argmax agree {agree:.3f}")
+    if not d_pd <= tol:
+        raise AssertionError("decode from the prefill cache disagrees with prefill")
+    mamba_layer_checks(torch, cfg, params, prompts)
+    return {"prefill_launches": prefill_launches, "decode_launches": decode_launches,
+            "prefill_ms": pre_s * 1e3, "decode_ms": dec_s * 1e3,
+            "prefill_device_ms": busy_ms, "ssd_device_ms": ssd_ms,
+            "decode_device_ms": dec_busy}
+
+
+def bf16_step(t) -> float:
+    """One bf16 step at the largest magnitude of ``t`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(float(t.float().abs().max()))) - 7)
+
+
+def mamba_layer_checks(torch, cfg, params, prompts) -> None:
+    """Layer by layer, each layer fed the kernel prefill's hidden state:
+    the layer through the kernel against the plain SSD (outputs and
+    h_final), and one recurrent decode step from the layer's prefill cache
+    of the first L-1 tokens against the prefill's last token."""
+    from repro_torch.models.hybrid import _mamba_layer_seq, _mamba_layer_step
+    from repro_torch.models.layers import embed_apply, layer_slice
+
+    x = embed_apply(params["embed"], prompts.long())
+    worst = {"kernel_steps": 0.0, "kernel_share": 0.0, "state_rel": 0.0,
+             "decode_steps": 0.0, "decode_share": 0.0}
+    for i in range(cfg.n_layers):
+        lp = layer_slice(params["layers"], i)
+        out_k, cache_k = _mamba_layer_seq(lp, x, cfg)
+        with plain_ssd():
+            out_p, cache_p = _mamba_layer_seq(lp, x, cfg)
+        _, short = _mamba_layer_seq(lp, x[:, :-1], cfg)
+        out_d, _ = _mamba_layer_step(lp, x[:, -1], short, cfg)
+        d_k = (out_k.float() - out_p.float()).abs()
+        d_d = (out_d.float() - out_k[:, -1].float()).abs()
+        d_s = (cache_k["state"] - cache_p["state"]).abs().max() / cache_p["state"].abs().max()
+        worst["kernel_steps"] = max(worst["kernel_steps"], float(d_k.max()) / bf16_step(out_p))
+        worst["kernel_share"] = max(worst["kernel_share"], float((d_k > 0).float().mean()))
+        worst["state_rel"] = max(worst["state_rel"], float(d_s))
+        worst["decode_steps"] = max(worst["decode_steps"],
+                                    float(d_d.max()) / bf16_step(out_k[:, -1]))
+        worst["decode_share"] = max(worst["decode_share"], float((d_d > 0).float().mean()))
+        x = out_k
+    torch.cuda.synchronize()
+    log(f"phase 5 layer by layer over {cfg.n_layers} layers (worst layer; bf16 steps at "
+        f"the output's largest magnitude): kernel vs plain {worst['kernel_steps']:.2f} "
+        f"steps, share differing {worst['kernel_share']:.4f}, h_final rel "
+        f"{worst['state_rel']:.3g}; decode step vs prefill {worst['decode_steps']:.2f} "
+        f"steps, share differing {worst['decode_share']:.4f}")
+    if not (worst["kernel_steps"] <= LAYER_KERNEL_STEPS
+            and worst["kernel_share"] <= LAYER_KERNEL_SHARE
+            and worst["state_rel"] <= SSD_REL_TOL):
+        raise AssertionError(f"a layer through the SSD kernel disagrees with plain: {worst}")
+    if not worst["decode_steps"] <= LAYER_DECODE_STEPS:
+        raise AssertionError(f"a decode step disagrees with the prefill: {worst}")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def kernel_bytes(cache_keeps, mask, hkv, hd8, page_keep_filter=None) -> int:
     """Plane bytes one launch must read: sum over pages with a valid token
     and keep > 0 of keep * 16 * Hkv * hd/8, for K and V."""
@@ -571,7 +852,7 @@ def time_kernels(torch, cache, keeps, errs, launches) -> list:
     r_bound, r_by = bound(r_bytes, flops / len(keeps))
     steps = {k: launches[k]["paged_attention_" + k] / launches["steps"][k]
              for k in ("fused", "rung")}
-    log(f"phase 5: fused {f_ms:.4f} ms/launch, {steps['fused']:.0f} launches per "
+    log(f"phase 6: fused {f_ms:.4f} ms/launch, {steps['fused']:.0f} launches per "
         f"decode step (bound {f_bound:.5f} ms, {f_bytes} B), rung {r_ms:.4f} "
         f"ms/launch, {steps['rung']:.0f} launches per decode step "
         f"(bound {r_bound:.5f} ms), "
@@ -651,7 +932,7 @@ def time_bitplane_kernels(torch, dev, errs, serve_launches, per_step, prefill,
     mm_lib, mm_lib_dev = cuda_time_ms(matmul_lib, iters=100), device_ms(matmul_lib)
     mm_bytes = keep * mm_k * mm_n // 8 + mm_m * mm_k * 2 + mm_m * mm_n * 4
     mm_bound, mm_by = bound_ms(mm_bytes, 2 * mm_m * mm_k * mm_n, BF16_TENSOR_FLOPS)
-    log(f"phase 5 (ms per call, CUDA events / profiler device time): bitplane_pack "
+    log(f"phase 6 (ms per call, CUDA events / profiler device time): bitplane_pack "
         f"{p_ms:.4f} / {p_dev:.4f} at m={m_dec} (bound {p_bound:.6f}, plain "
         f"{p_plain:.4f} / {p_plain_dev:.4f}); bitplane_unpack {u_ms:.4f} / {u_dev:.4f} "
         f"at m={m_slot} keep 16 (bound {u_bound:.6f}, plain {u_plain:.4f} / "
@@ -692,6 +973,59 @@ def time_bitplane_kernels(torch, dev, errs, serve_launches, per_step, prefill,
     ]
 
 
+def ssd_work(bsz: int, l: int, h: int, p: int, n: int, q: int) -> tuple:
+    """(bytes, causal operations, TPU-form operations) of one SSD launch:
+    each input read once (xdt, da, b, c, h0) and each output written once
+    (y, h_final), float32. The function needs only the causal half of the
+    two Q x Q products, 2 (Q(Q+1)/2 (N + P) + 2 Q N P) per (batch, head,
+    chunk); the TPU kernel computes them in full, 2 (Q^2 N + Q^2 P + 2 Q N P),
+    and that count is kept only for comparison."""
+    nbytes = 4 * (2 * bsz * l * h * p + bsz * l * h + 2 * bsz * l * h * n
+                  + 2 * bsz * h * n * p)
+    blocks = bsz * h * (l // q)
+    full = 2 * (q * q * n + q * q * p + 2 * q * n * p) * blocks
+    tri = q * (q + 1) // 2
+    causal = 2 * (tri * n + tri * p + 2 * q * n * p) * blocks
+    return nbytes, causal, full
+
+
+def time_ssd_kernel(torch, err: float, case: tuple, mamba: dict) -> dict:
+    """The SSD kernel at the Mamba2-1.3B prefill shape on phase 2's inputs
+    (420 MB, beyond L2), timed with CUDA events and with the profiler's
+    device time, beside the plain version's times and the bound."""
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd import ref as SR
+
+    xdt, da, b, c, h0 = case
+    bsz, l, h, p = xdt.shape
+    n, q = b.shape[-1], 256
+    run = lambda i: SK.ssd(xdt, da, b, c, h0, chunk=q)  # noqa: E731
+    plain = lambda i: SR.ssd_ref(xdt, da, b, c, h0, chunk=q)  # noqa: E731
+    k_ms, k_dev = cuda_time_ms(run, iters=20), device_ms(run, "ssd_kernel", 20)
+    p_ms, p_dev = cuda_time_ms(plain, iters=5), device_ms(plain, "", 5)
+    nbytes, causal, full = ssd_work(bsz, l, h, p, n, q)
+    b_ms, b_by = bound_ms(nbytes, causal, F32_FLOPS)
+    b_full, _ = bound_ms(nbytes, full, F32_FLOPS)
+    log(f"phase 6: ssd {k_ms:.4f} / {k_dev:.4f} ms (events / device) at "
+        f"B={bsz} L={l} H={h} P={p} N={n} Q={q}: bound {b_ms:.4f} ms by {b_by} "
+        f"({causal} float32 operations for the causal half of the Q x Q products, "
+        f"{nbytes} B), {causal / (k_dev * 1e-3) / 1e12:.2f} TFLOP/s of causal "
+        f"work, {b_ms / k_dev:.3f} of the bound; the TPU kernel's full Q x Q "
+        f"form would count {full} operations, {b_full:.4f} ms; plain "
+        f"{p_ms:.4f} / {p_dev:.4f} ms")
+    return {"name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:72",
+            "launches": mamba["prefill_launches"],
+            "launches_per_prefill_step": mamba["prefill_launches"],
+            "launches_per_serve_step": mamba["decode_launches"] / SSM_STEPS,
+            "max_abs_err": err, "ms": k_ms, "device_ms": k_dev,
+            "plain_ms": p_ms, "plain_device_ms": p_dev,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_flops": causal,
+            "bound_bytes": nbytes, "tpu_form_flops": full,
+            "tpu_form_bound_ms": b_full,
+            "library_ms": None, "library": "none"}
+
+
 def main() -> int:
     import torch
 
@@ -714,6 +1048,7 @@ def main() -> int:
     dev = torch.device("cuda")
     errs = check_kernels(torch, dev)
     errs.update(check_bitplane_kernels(torch, dev))
+    errs["ssd"], ssd_inputs = check_ssd_kernel(torch, dev)
 
     cfg = get_config("smollm-135m")
     model = build_model(cfg)
@@ -730,12 +1065,14 @@ def main() -> int:
     prefill = prefill_chunk_launches(torch, model, params, cache)
     teacher_forced(torch, model, params, cache, tok, keeps)
     qs_launches = run_quickstart(torch)
+    mamba = run_mamba(torch, dev)
 
     kernels = time_kernels(torch, cache, keeps, errs, {
         "fused": fused_launches, "rung": rung_launches,
         "steps": {"fused": fused_rep["decode_steps"], "rung": rung_rep["decode_steps"]}})
     kernels += time_bitplane_kernels(torch, dev, errs, fused_launches, per_step,
                                      prefill, qs_launches)
+    kernels.append(time_ssd_kernel(torch, errs["ssd"], ssd_inputs, mamba))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err"):
             if key == "library_ms" and k[key] is None and k.get("library") == "none":
@@ -748,7 +1085,8 @@ def main() -> int:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its main path")
     log(f"decode tok/s: fused {fused_rep['decode_tok_per_s']:.1f}, "
-        f"rung {rung_rep['decode_tok_per_s']:.1f}; total {time.perf_counter() - t_start:.1f} s")
+        f"rung {rung_rep['decode_tok_per_s']:.1f}; mamba2-1.3b prefill "
+        f"{mamba['prefill_ms']:.2f} ms, decode {mamba['decode_ms']:.3f} ms/step; total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 
 An architecture registers a FULL config (the exact published shape) and a
 SMOKE config (same family, reduced depth/width, runnable on CPU in
-seconds).  The port serves the dense transformer family; only
-``smollm-135m`` is registered so far, and the other architectures of the
+seconds).  The port serves the dense transformer family (``smollm-135m``)
+and the SSM family (``mamba2-1.3b``); the other architectures of the
 reference raise until the slice that ports their family lands.
 """
 
@@ -153,12 +153,13 @@ class ModelConfig:
 
 _ARCH_MODULES = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
 }
 
 #: architectures the reference registers that the port does not serve yet
 _LATER = (
     "yi-34b", "nemotron-4-15b", "yi-9b", "deepseek-moe-16b", "mixtral-8x7b",
-    "mamba2-1.3b", "zamba2-7b", "llava-next-34b", "whisper-tiny",
+    "zamba2-7b", "llava-next-34b", "whisper-tiny",
 )
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -168,8 +169,9 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch in _LATER:
         raise NotImplementedError(
             f"{arch!r} is not ported yet: the port serves the dense family "
-            f"(smollm-135m); other configs and families come with the "
-            f"'other model families' slice (ROADMAP queue 1 item 8)"
+            f"(smollm-135m) and the SSM family (mamba2-1.3b); other configs "
+            f"and families come with the 'other model families' slice "
+            f"(ROADMAP queue 1 item 4)"
         )
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")

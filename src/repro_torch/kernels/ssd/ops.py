@@ -1,0 +1,44 @@
+"""The SSD scan (port of the reference's ``kernels/ssd/ops.py``): the
+zero-state default and the chunk padding, then the dispatch.
+
+Dispatch: CPU tensors take the plain PyTorch version in :mod:`.ref`; CUDA
+tensors launch the hand-written kernel (:mod:`.kernel`) or raise.  There
+is no other route.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ssd import kernel as K
+from repro_torch.kernels.ssd import ref as R
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernel reads
+    16-byte vectors); a view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def ssd(xdt, da, b_h, c_h, h0=None, chunk: int = 256):
+    """Drop-in for ``models.ssm.ssd_scan`` (same contract).
+
+    xdt (B, L, H, P) inputs pre-scaled by dt; da (B, L, H) per-position
+    dt·A (negative); b_h/c_h (B, L, H, N); h0 (B, H, N, P) or None for a
+    zero state.  Any L: it is padded to a multiple of ``min(chunk, L)``
+    with zero inputs and da = 0.  Returns (y (B, L, H, P), h_final
+    (B, H, N, P)), float32."""
+    bsz, l, h, p = xdt.shape
+    n = b_h.shape[-1]
+    if h0 is None:
+        h0 = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=xdt.device)
+    (xdt, da, b_h, c_h), q = R.pad_to_chunks(xdt, da, b_h, c_h, chunk)
+    h0 = h0.float()
+    if xdt.device.type == "cpu":
+        y, h_final = R.ssd_chunked(xdt, da, b_h, c_h, h0, q)
+    elif xdt.device.type == "cuda":
+        y, h_final = K.ssd(*(_aligned(t) for t in (xdt, da, b_h, c_h, h0)), chunk=q)
+    else:
+        raise ValueError(f"ssd runs on cpu or cuda tensors, got {xdt.device}")
+    return y[:, :l], h_final

@@ -195,7 +195,7 @@ def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
     if cfg.attn_window > 0:
         raise NotImplementedError(
             "sliding-window attention (ring caches) is not ported yet: it "
-            "comes with the ring backend slice (ROADMAP queue 1 item 6)"
+            "comes with the ring backend slice (ROADMAP queue 1 item 2)"
         )
     hp = params["wq"].shape[1]
     hm = head_map_static(hp, cfg.n_heads, cfg.n_kv_heads)

@@ -1,4 +1,5 @@
-"""Shared primitives: norms, rotary embeddings, the SwiGLU MLP, embeddings.
+"""Shared primitives: norms (plain and Mamba2's gated one), rotary
+embeddings, the SwiGLU MLP, embeddings.
 
 Plain functions over parameter dicts, in the reference's layouts.  The
 rounding points are the reference's (``models/layers.py``): float32 inside
@@ -13,6 +14,11 @@ import math
 import torch
 
 
+def pdtype(cfg) -> torch.dtype:
+    """The parameters' storage dtype (``cfg.dtype``, bf16 by default)."""
+    return getattr(torch, cfg.dtype)
+
+
 def he_init(shape, generator: torch.Generator, dtype=torch.bfloat16,
             fan_in: int | None = None) -> torch.Tensor:
     fan_in = fan_in if fan_in is not None else shape[0]
@@ -22,8 +28,24 @@ def he_init(shape, generator: torch.Generator, dtype=torch.bfloat16,
     return (x * scale).to(dtype)
 
 
+def rmsnorm_params(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
 def rmsnorm(x: torch.Tensor, params: dict, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * params["scale"].float()).to(x.dtype)
+
+
+def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, params: dict,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's norm: RMSNorm(x * silu(z)), the gate applied before the
+    normalisation, all in float32 (``x * sigmoid(x)`` is the float32 silu
+    closest to XLA's: it differs in the last bit on under 1% of inputs)."""
+    zf = z.float()
+    xf = x.float() * (zf * torch.sigmoid(zf))
     var = (xf * xf).mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * params["scale"].float()).to(x.dtype)
@@ -60,6 +82,24 @@ def mlp_apply(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     # each op rounded to the storage dtype (F.silu rounds only once)
     h = g * (1 / (1 + torch.exp(-g))) * (x @ params["w_in"])
     return h @ params["w_out"]
+
+
+def layer_slice(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a tree whose tensors are stacked on a leading layer
+    axis (views, no copies)."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def stack_layers(trees: list) -> dict:
+    """Per-layer trees of one shape -> one tree stacked on a leading layer
+    axis (the reference's ``vmap``/``scan`` layout)."""
+    return {k: stack_layers([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+            else torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def embed_params(generator: torch.Generator, vocab_padded: int, d: int,
+                 dtype=torch.bfloat16) -> dict:
+    return {"table": he_init((vocab_padded, d), generator, dtype, fan_in=d)}
 
 
 def embed_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:

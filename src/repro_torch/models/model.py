@@ -1,16 +1,30 @@
-"""Model API of the port: the dense branch of the reference's
+"""Model API of the port: the dense and SSM branches of the reference's
 ``models/model.py::build_model``.
 
-``build_model(cfg)`` returns a :class:`Model` whose methods keep the
-reference's call shapes (parameters are passed in, as in JAX, so the
-serving stack and the parity tests hand the same nested dict around):
+``build_model(cfg)`` returns a model whose methods keep the reference's
+call shapes (parameters are passed in, as in JAX, so the serving stack,
+the step functions and the parity tests hand the same nested dict around).
 
-    init(generator)                                   -> params
+Dense (:class:`Model`):
+
+    init(generator=None, device=None)                 -> params
     prefill_chunk(params, tokens, cache, slot, start, last_idx)
                                                       -> (logits, cache)
     decode(params, token, cache, keeps=, decode_kernel=)
                                                       -> (logits, cache)
     init_cache(batch, max_len, device)                -> zeroed dense cache
+
+SSM (:class:`SSMModel`, Mamba2):
+
+    init(generator=None, device=None)                 -> params
+    prefill(params, batch)                            -> (last-token logits, cache)
+    decode(params, token, cache)                      -> (logits, cache)
+    init_cache(batch, max_len=None, device=None)      -> zeroed decode cache
+
+``init`` draws from ``generator`` onto its device when one is given;
+otherwise from a generator seeded 0 on ``resolve_device(device)``: CUDA
+unless the caller asks for the CPU, and an error when no GPU is present.
+A ``device`` given beside a ``generator`` must be the generator's.
 """
 
 from __future__ import annotations
@@ -18,7 +32,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import hybrid as H
 from repro_torch.models import transformer as T
+
+
+def _generator(generator, device) -> torch.Generator:
+    if generator is None:
+        return torch.Generator(device=resolve_device(device)).manual_seed(0)
+    if device is not None:
+        want, have = torch.device(device), generator.device
+        if want.type != have.type or want.index not in (None, have.index):
+            raise ValueError(f"device {device!r} differs from the generator's "
+                             f"device {have}")
+    return generator
 
 
 class Model(torch.nn.Module):
@@ -28,8 +55,8 @@ class Model(torch.nn.Module):
         super().__init__()
         self.cfg = cfg
 
-    def init(self, generator: torch.Generator) -> dict:
-        return T.init_lm_params(self.cfg, generator)
+    def init(self, generator: torch.Generator | None = None, device=None) -> dict:
+        return T.init_lm_params(self.cfg, _generator(generator, device))
 
     def prefill_chunk(self, params, tokens, cache, slot, start, last_idx):
         return T.lm_prefill_chunk(params, self.cfg, tokens, cache, slot,
@@ -47,11 +74,49 @@ class Model(torch.nn.Module):
                            decode_kernel=decode_kernel)
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+class SSMModel(torch.nn.Module):
+    """The Mamba2 LM.  ``forward`` is one decode step.  Everything runs
+    where its parameters (and the cache) lie."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+
+    def init(self, generator: torch.Generator | None = None, device=None) -> dict:
+        return H.init_ssm_lm_params(self.cfg, _generator(generator, device))
+
+    def loss(self, params, batch):
+        return H.ssm_lm_loss(params, self.cfg, batch)
+
+    def prefill(self, params, batch):
+        return H.ssm_lm_prefill(params, self.cfg, batch)
+
+    def decode(self, params, token, cache):
+        return H.ssm_lm_decode(params, self.cfg, token, cache)
+
+    def init_cache(self, batch: int, max_len=None, device=None, dtype=None) -> dict:
+        """``max_len`` is accepted for the reference's call shape; the
+        state is O(1) in the context length."""
+        return H.init_ssm_lm_cache(self.cfg, batch, resolve_device(device), dtype)
+
+    def forward(self, params, token, cache):
+        return self.decode(params, token, cache)
+
+
+def build_model(cfg: ModelConfig) -> Model | SSMModel:
+    if cfg.family == "dense":
+        return Model(cfg)
+    if cfg.family == "ssm":
+        return SSMModel(cfg)
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the MoE, SSM, hybrid, "
-            f"enc-dec and VLM families come with the 'other model families' "
-            f"slice (ROADMAP queue 1 item 8)"
+            "family 'hybrid' (Zamba2: Mamba2 layers and a shared attention "
+            "block with a dense KV cache) is not ported yet: it comes next in "
+            "the 'other model families' slice (ROADMAP queue 1 item 4), with "
+            "the flash-attention kernel"
         )
-    return Model(cfg)
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet: the MoE, enc-dec and VLM "
+        f"families come with the 'other model families' slice (ROADMAP queue "
+        f"1 item 4)"
+    )

@@ -19,7 +19,17 @@ import torch
 
 from repro_torch.kernels.paged_attention.ops import pack_kv_planes
 from repro_torch.models.attention import attn_apply, attn_params
-from repro_torch.models.layers import embed_apply, he_init, mlp_apply, rmsnorm
+from repro_torch.models.layers import (
+    embed_apply,
+    embed_params,
+    he_init,
+    layer_slice,
+    mlp_apply,
+    pdtype,
+    rmsnorm,
+    rmsnorm_params,
+    stack_layers,
+)
 
 
 def init_lm_params(cfg, generator: torch.Generator) -> dict:
@@ -28,33 +38,24 @@ def init_lm_params(cfg, generator: torch.Generator) -> dict:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (the dense slice only)")
-    dtype = getattr(torch, cfg.dtype)
+    dtype = pdtype(cfg)
     dev = generator.device
     d, ff = cfg.d_model, cfg.d_ff
-
-    def ones():
-        return torch.ones((d,), dtype=dtype, device=dev)
-
-    embed = he_init((cfg.vocab_padded, d), generator, dtype, fan_in=d)
+    embed = embed_params(generator, cfg.vocab_padded, d, dtype)
     layers = []
     for _ in range(cfg.n_layers):
         layers.append({
-            "ln1": {"scale": ones()},
+            "ln1": rmsnorm_params(d, dtype, dev),
             "attn": attn_params(generator, cfg, dtype),
-            "ln2": {"scale": ones()},
+            "ln2": rmsnorm_params(d, dtype, dev),
             "mlp": {
                 "w_gate": he_init((d, ff), generator, dtype),
                 "w_in": he_init((d, ff), generator, dtype),
                 "w_out": he_init((ff, d), generator, dtype, fan_in=ff),
             },
         })
-    stacked = {
-        group: {name: torch.stack([lp[group][name] for lp in layers])
-                for name in layers[0][group]}
-        for group in layers[0]
-    }
-    params = {"embed": {"table": embed}, "layers": stacked,
-              "final_norm": {"scale": ones()}}
+    params = {"embed": embed, "layers": stack_layers(layers),
+              "final_norm": rmsnorm_params(d, dtype, dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": he_init((cfg.vocab_padded, d), generator, dtype)}
     return params
@@ -62,12 +63,6 @@ def init_lm_params(cfg, generator: torch.Generator) -> dict:
 
 def head_weight(params: dict) -> torch.Tensor:
     return params.get("lm_head", {"w": params["embed"]["table"]})["w"]
-
-
-def layer_params(params: dict, i: int) -> dict:
-    """Views of layer ``i``'s weights in the stacked parameter dict."""
-    return {group: {name: t[i] for name, t in sub.items()}
-            for group, sub in params["layers"].items()}
 
 
 def run_stack(params, cfg, x, pos, cache=None, keeps=None, decode_kernel="fused"):
@@ -80,7 +75,7 @@ def run_stack(params, cfg, x, pos, cache=None, keeps=None, decode_kernel="fused"
     kn, vn = ("k_planes", "v_planes") if bitplane else ("k", "v")
     kv_planes = cache.get("planes") if bitplane else None
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+        lp = layer_slice(params["layers"], i)
         kv = None if cache is None else (cache[kn][i], cache[vn][i])
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         attn_out, _ = attn_apply(lp["attn"], h, cfg, pos=pos, cache=kv,
@@ -148,8 +143,8 @@ def init_decode_cache(cfg, batch: int, max_len: int, device,
     if 0 < cfg.attn_window < max_len or cfg.decode_staging > 0:
         raise NotImplementedError(
             "ring and staged decode caches are not ported yet (ROADMAP queue "
-            "1 item 6)")
-    dtype = dtype or getattr(torch, cfg.dtype)
+            "1 item 2)")
+    dtype = dtype or pdtype(cfg)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),

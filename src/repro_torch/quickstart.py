@@ -27,9 +27,9 @@ from repro_torch.core.bitplane import BF16
 from repro_torch.core.compressed_store import StoreConfig
 from repro_torch.core.controller import MemoryController
 from repro_torch.core.surrogates import gaussian_weights, logmag_kv_cache
+from repro_torch.device import resolve_device
 from repro_torch.kernels.bitplane_matmul import ops as mm
 from repro_torch.memsim.trace import replay_controller_trace
-from repro_torch.serving.scheduler import resolve_device
 
 
 def run(device=None) -> dict:

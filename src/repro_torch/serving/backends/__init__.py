@@ -24,7 +24,7 @@ def make_backend(model, cfg, device, controller=None, stats=None,
         raise NotImplementedError(
             f"backend={cfg.backend!r} is not ported yet: the ring and sharded "
             f"tiers come with the 'rest of serving' slice (ROADMAP queue 1 "
-            f"item 6); the port serves backend='paged'"
+            f"item 2); the port serves backend='paged'"
         )
     try:
         cls = BACKENDS[cfg.backend]

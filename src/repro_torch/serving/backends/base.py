@@ -202,22 +202,29 @@ class KVBackend(abc.ABC):
     @classmethod
     def check_model(cls, mcfg, cfg) -> None:
         """Raise when this backend cannot serve the model/config."""
+        if mcfg.family in ("ssm", "hybrid", "encdec"):
+            raise NotImplementedError(
+                f"continuous batching supports dense-cache families, got "
+                f"{mcfg.family!r} (use family-specific engines for "
+                f"ssm/hybrid/encdec: the SSM family serves through "
+                f"repro_torch.launch's prefill and serve steps)"
+            )
         if mcfg.family != "dense":
             raise NotImplementedError(
                 f"the port serves the dense family; {mcfg.family!r} comes "
                 f"with the 'other model families' slice (ROADMAP queue 1 "
-                f"item 8)"
+                f"item 4)"
             )
         if 0 < mcfg.attn_window < cfg.max_ctx:
             raise NotImplementedError(
                 "sliding-window ring caches need backend='ring', which comes "
-                "with the 'rest of serving' slice (ROADMAP queue 1 item 6)"
+                "with the 'rest of serving' slice (ROADMAP queue 1 item 2)"
             )
         if mcfg.decode_staging > 0:
             raise NotImplementedError(
                 f"decode_staging={mcfg.decode_staging}: staged decode caches "
                 f"come with the 'rest of serving' slice (ROADMAP queue 1 "
-                f"item 6)"
+                f"item 2)"
             )
         if cfg.device_kv not in ("dense", "bitplane"):
             raise ValueError(

@@ -35,27 +35,12 @@ import torch
 
 from repro_torch.core.controller import MemoryController
 from repro_torch.core.quantization import PrecisionLadder
+from repro_torch.device import resolve_device
 from repro_torch.memctl import MemCtlConfig
 from repro_torch.serving.backends import make_backend
 from repro_torch.serving.kv_cache import PAGE_TOKENS
 from repro_torch.serving.sampler import SamplerConfig, sample, sample_slots
 from repro_torch.telemetry.collector import TelemetryConfig, make_collector
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA by default.  Raises when no
-    GPU is present and the caller did not ask for the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "port on the CPU"
-            )
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
-    return dev
 
 
 @dataclasses.dataclass

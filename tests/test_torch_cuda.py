@@ -1,5 +1,5 @@
-"""The port's bit-plane CUDA kernels against their plain PyTorch versions
-on the card.  Every test here needs an NVIDIA GPU and ``nvcc``, carries
+"""The port's bit-plane and SSD CUDA kernels against their plain PyTorch
+versions on the card.  Every test here needs an NVIDIA GPU and ``nvcc``, carries
 the ``cuda`` marker and skips without a GPU.  The file imports no JAX, so
 it runs on the GPU host:
 
@@ -8,7 +8,9 @@ it runs on the GPU host:
 Tolerances: pack and unpack move bits and must match bit for bit.  The
 matmul takes exact bf16 x bf16 products in float32 on both sides; the
 kernel sums them in K order and the plain version through cuBLAS in an
-order of its own, so it is held to atol = rtol = 1e-4.
+order of its own, so it is held to atol = rtol = 1e-4.  The SSD scan is
+float32 on both sides and differs only in the order of its sums: it is held
+to 1e-4 of the largest output (about 1e-5 measured at full width).
 """
 
 import pytest
@@ -19,8 +21,12 @@ from repro_torch.kernels.bitplane import ref as R
 from repro_torch.kernels.bitplane_matmul import kernel as MK
 from repro_torch.kernels.bitplane_matmul import ops as MM
 from repro_torch.kernels.bitplane_matmul import ref as MR
+from repro_torch.kernels.ssd import kernel as SK
+from repro_torch.kernels.ssd import ops as SO
+from repro_torch.kernels.ssd import ref as SR
 
 MATMUL_TOL = 1e-4
+SSD_REL_TOL = 1e-4
 
 
 def _cuda():
@@ -65,3 +71,58 @@ def test_cuda_bitplane_matmul_matches_plain_on_card(m, k, n):
         torch.testing.assert_close(got, MR.bitplane_matmul_ref(x, planes, keep),
                                    atol=MATMUL_TOL, rtol=MATMUL_TOL)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,p,n,chunk,h0", [
+    (4, 1024, 64, 64, 128, 256, True),   # Mamba2-1.3B prefill
+    (4, 1000, 64, 64, 128, 256, True),   # ragged L
+    (4, 37, 64, 64, 128, 256, False),    # below one chunk
+    (2, 45, 4, 32, 16, 32, True),        # the smoke config
+    (1, 300, 3, 8, 4, 100, True),        # a chunk that is no multiple of 64
+])
+def test_cuda_ssd_matches_plain_on_card(b, l, h, p, n, chunk, h0):
+    """dt in [1e-3, 1e-1] and A in [-16, -1], as ``ssm_params`` draws them:
+    a chunk's cumsum reaches some -400, so an exponent of the masked half
+    would overflow."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(l * h + n)
+    a = -(torch.rand((h,), generator=gen, device=dev) * 15 + 1)
+    dt = torch.rand((b, l, h), generator=gen, device=dev) * 0.099 + 1e-3
+    xdt = torch.randn((b, l, h, p), generator=gen, device=dev) * dt[..., None]
+    b_h = torch.randn((b, l, h, n), generator=gen, device=dev)
+    c_h = torch.randn((b, l, h, n), generator=gen, device=dev)
+    state = torch.randn((b, h, n, p), generator=gen, device=dev) if h0 else None
+    SK.reset_launches()
+    y, hf = SO.ssd(xdt, dt * a, b_h, c_h, state, chunk=chunk)
+    assert SK.LAUNCHES["ssd"] == 1
+    y_r, hf_r = SR.ssd_ref(xdt, dt * a, b_h, c_h, state, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(hf).all()
+    assert (y - y_r).abs().max() <= SSD_REL_TOL * y_r.abs().max()
+    assert (hf - hf_r).abs().max() <= SSD_REL_TOL * hf_r.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_prefill_runs_the_kernel_once_per_layer():
+    """The smoke Mamba2 on the card: prefill launches the SSD kernel once
+    per layer, the serve steps never; the default device is CUDA."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+
+    _cuda()
+    model = build_model(get_config("mamba2-1.3b", smoke=True))
+    params = model.init()
+    assert params["embed"]["table"].device.type == "cuda"
+    tokens = torch.randint(0, 512, (2, 70), device="cuda", dtype=torch.int32)
+    SK.reset_launches()
+    tok, cache = make_prefill_step(model)(params, {"tokens": tokens})
+    assert SK.LAUNCHES["ssd"] == model.cfg.n_layers
+    SK.reset_launches()
+    serve = make_serve_step(model)
+    for _ in range(4):
+        tok, cache = serve(params, tok, cache)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["ssd"] == 0
+    assert tok.dtype == torch.int32 and int(cache["len"]) == 74
