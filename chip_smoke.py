@@ -10,10 +10,10 @@ nothing of JAX and nothing of the JAX package ``repro``.
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
-1. The card's name and power limit; build the four kernel libraries
+1. The card's name and power limit; build the five kernel libraries
    from ``src/repro_torch/csrc`` (paged attention, bit-plane pack/unpack,
-   bit-plane matmul, the SSD scan; one ``nvcc`` each, all started
-   together) and report the build times and ptxas register lines.
+   bit-plane matmul, the SSD scan, flash attention; one ``nvcc`` each, all
+   started together) and report the build times and ptxas register lines.
 2. Each kernel against its plain PyTorch version on the card.  Paged
    attention at the serving shapes of full-width SmolLM-135M (B=8,
    S=1024, Hkv=3, rep=3, hd=64): mixed plane counts {8, 12, 16} with
@@ -23,7 +23,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    matmul at the quickstart's shape and every SmolLM-135M projection; the
    SSD scan at the full-width Mamba2-1.3B prefill shape (B=4, L=1024,
    H=64, P=64, N=128, Q=256) with a nonzero initial state and realistic
-   dt·A, at a ragged L=1000 and at L=37 (below one chunk).
+   dt·A, at a ragged L=1000 and at L=37 (below one chunk); flash attention
+   at the full-width Zamba2-7B prefill shape (B=2, L=4096, 32 heads of
+   112, causal), at SmolLM-135M prefill chunks (64 and 512 rows at offsets
+   0 and 448 over 1024 slot rows, 9 q / 3 kv heads of 64), at a ragged
+   L=1000, with a 64-key window and bidirectional with kv_valid < Skv.
 3. Serve 16 requests through ``ContinuousScheduler`` on full-width
    SmolLM-135M (random weights from a seeded ``torch.Generator``, 30
    layers) with bit-plane device KV and a precision ladder, once through
@@ -31,7 +35,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    reset before and read after each run (attention, pack and unpack
    kernels); a torch.profiler window of steady decode steps (device
    kernel time against host wall time, and launches per decode step);
-   the launches of one prefill chunk; then one teacher-forced decode step
+   the launches of one prefill chunk (30 flash launches, one a layer); then one teacher-forced decode step
    from a snapshot of the serving cache, three ways (fused, rung, plain),
    whose logits must agree.
 4. The paper-pipeline quickstart (``repro_torch.quickstart``) on the card,
@@ -45,6 +49,16 @@ Phases (any failure exits non-zero; no phase's error is caught):
    time and the SSD kernel's share); teacher-forced prefill logits through
    the kernel against the same prefill through the plain SSD, and the
    reference's prefill/decode consistency check.
+5b. Full-width Zamba2-7B (81 slots: 13 shared-attention-block calls and
+   68 Mamba2 layers; random weights from a seeded ``torch.Generator``;
+   the earlier phases' models freed first) through ``make_prefill_step``
+   on 2 prompts of 4096 tokens (13 flash and 68 SSD launches), then the
+   cache padded by ``prepare_decode_cache`` and 32 greedy
+   ``make_serve_step`` steps (no flash or SSD launch: decode attention and
+   the recurrent Mamba2 step); prefill and decode times, a profiler window
+   over one prefill; prefill logits through both kernels against both
+   plain versions (after the plain versions' own floor), decode against
+   prefill, and every slot layer by layer.
 6. Kernel times (CUDA events) beside their bound, the plain version's
    time and one PyTorch call's where one computes the same function,
    printed as one ``{"kernels": [...]}`` line.
@@ -71,7 +85,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
 
-SOURCES = ("paged_attention.cu", "bitplane.cu", "bitplane_matmul.cu", "ssd.cu")
+SOURCES = ("paged_attention.cu", "bitplane.cu", "bitplane_matmul.cu", "ssd.cu",
+           "flash_attention.cu")
 
 B, S, HKV, REP, HD, BITS = 8, 1024, 3, 3, 64, 16
 LADDER = [(4, 16), (4, 12), (-1, 8)]
@@ -124,6 +139,48 @@ LAYER_DECODE_STEPS = 4
 # width.  A wrong state hand-over or tile moves them by the order of max
 # |logit| itself.
 SSM_LOGITS_RTOL_OF_MAX = 0.10
+# Zamba2-7B prefill: 2 prompts of 4096 tokens, then greedy decode steps
+ZAMBA_B, ZAMBA_L, ZAMBA_STEPS = 2, 4096, 32
+# Flash attention against its plain version, in bf16 steps at each output
+# row's own largest magnitude (per batch row, query and head; a causal
+# row's output shrinks with its depth, so a step at the whole output's
+# largest magnitude, set by the first rows, would pass a wrong deep row):
+# both take float32 scores and round p to bf16 before p·v, but at the
+# running max of 64-key tiles in the kernel and of 512-key chunks in the
+# plain version, and they sum in another order.  That can flip the
+# output's final rounding (one step) and moves the float32 value by a
+# small fraction of a step, so two steps leave one of room.  A dropped or
+# mis-masked tile or a wrong scale moves a row by the order of its
+# magnitude, about 128 steps.
+FLASH_BF16_STEPS = 2
+# Zamba2's shared block, fed the same input, through the flash kernel
+# against the plain version.  Its attention sub-layer is held to
+# FLASH_BF16_STEPS at each token's largest magnitude: the o-projection
+# rounds once more, and the flash output's flipped roundings move its
+# float32 sum by a fraction of a step.  The block output, at its largest
+# magnitude (the residual stream's), rounds three more times after that,
+# each worth up to one step: the residual sum, the MLP's bf16 output and
+# the final sum; the MLP's response to its bf16 input's flipped roundings
+# adds under one more step, hence four.
+SHARED_BLOCK_STEPS = 4
+# Flash cases (b, sq, skv, hp, hkv, hd, start, kv_valid, causal, window):
+# the Zamba2-7B prefill first (its inputs are timed in phase 6), SmolLM
+# prefill chunks into a 1024-row slot, a ragged L, a window, and
+# bidirectional with kv_valid < Skv
+FLASH_CASES = (
+    (ZAMBA_B, ZAMBA_L, ZAMBA_L, 32, 32, 112, 0, ZAMBA_L, True, 0),
+    (1, 64, S, 9, 3, HD, 0, 64, True, 0),
+    (1, 64, S, 9, 3, HD, 448, 512, True, 0),
+    (1, 512, S, 9, 3, HD, 0, 512, True, 0),
+    (1, 512, S, 9, 3, HD, 448, 960, True, 0),
+    (ZAMBA_B, 1000, 1000, 32, 32, 112, 0, 1000, True, 0),
+    (ZAMBA_B, 1024, 1024, 32, 32, 112, 0, 1024, True, 64),
+    (ZAMBA_B, 256, 1024, 32, 32, 112, 0, 700, False, 0),
+)
+# Zamba2 logits end to end, relative to max |logit|: as for Mamba2, the
+# random-weight stack (81 slots) amplifies rounding; the run prints the
+# plain versions against themselves in another sum order as the floor.
+HYBRID_LOGITS_RTOL_OF_MAX = 0.10
 
 
 def log(msg: str) -> None:
@@ -163,6 +220,7 @@ def build_kernels() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.bitplane_matmul import kernel as MK
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.ssd import kernel as SK
 
@@ -179,30 +237,69 @@ def build_kernels() -> None:
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
-    for mod in (K, BK, MK, SK):
+    for mod in (K, BK, MK, SK, FK):
         mod._library()
     log(f"phase 1: {len(SOURCES)} libraries built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def device_ms(fn, match: str = "", iters: int = 50) -> float:
-    """Device time per call of ``fn(i)``: the summed time of the CUDA
-    kernels whose name contains ``match`` (all of them when empty) in a
-    torch.profiler window of ``iters`` calls.  Unlike CUDA events around
-    back-to-back calls, it leaves out the gaps in which the host was still
-    issuing the next launch."""
+# A torch.profiler window on the card can lose the first few kernel
+# records it should hold (4 to 6 of them in chip_smoke's runs on the H100,
+# whether or not host activity is traced too), so every window opens with
+# PROFILER_PAD short sleep kernels that its rows leave out, and phase 6
+# logs how many of them were lost.  A window in which no pad kernel
+# survived may have lost real records, and one that holds fewer launches
+# of a kernel than were made did: either is logged and kept in
+# INCOMPLETE_WINDOWS, and phase 6 fails on any.
+PROFILER_PAD = 32
+INCOMPLETE_WINDOWS: list = []
+PAD_LOST: list = []
+
+
+def device_rows(run, what: str) -> list:
+    """The device rows (``key_averages``) of a torch.profiler window, host
+    and device activity traced, around ``run()`` and a synchronise, with
+    the pad kernels left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILER_PAD):
+            torch.cuda._sleep(1)
+        run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    pad = sum(e.count for e in rows if "spin_kernel" in e.key)
+    PAD_LOST.append(PROFILER_PAD - pad)
+    if pad == 0:
+        INCOMPLETE_WINDOWS.append((what, "no pad kernel recorded"))
+        log(f"profiler: the window over {what} recorded none of its pad kernels; "
+            f"its first rows: {[e.key[:40] for e in rows[:3]]}")
+    return [e for e in rows if "spin_kernel" not in e.key]
+
+
+def device_ms(fn, match: str = "", iters: int = 50) -> float:
+    """Device time per call of ``fn(i)``: the summed time of the device
+    kernels whose name contains ``match`` (all of them when empty) in a
+    profiler window of ``iters`` calls (``device_rows``), divided by
+    ``iters``.  Unlike CUDA events around back-to-back calls, it leaves
+    out the gaps in which the host was still issuing the next launch.
+    With a ``match`` (one kernel a call) the window must hold ``iters``
+    launches of it."""
+    fn(0)
+
+    def run():
         for i in range(iters):
             fn(i)
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key)
-    return total_us / iters / 1e3
+
+    rows = [e for e in device_rows(run, match or "a plain call") if match in e.key]
+    n = sum(e.count for e in rows)
+    if match and n != iters:
+        INCOMPLETE_WINDOWS.append((match, f"{n} of {iters} launches recorded"))
+        log(f"profiler: the window recorded {n} of {iters} launches of {match}")
+    return sum(e.self_device_time_total for e in rows) / iters / 1e3
 
 
 def random_case(torch, dev, gen):
@@ -361,6 +458,43 @@ def check_ssd_kernel(torch, dev) -> tuple:
     return out[SSM_L]
 
 
+def check_flash_kernel(torch, dev) -> tuple:
+    """The flash kernel against its plain version on the same CUDA inputs
+    at FLASH_CASES, within FLASH_BF16_STEPS at each output row's largest
+    magnitude.  Returns (max abs err at the Zamba2-7B prefill shape, its
+    inputs)."""
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    first = None
+    for b, sq, skv, hp, hkv, hd, start, valid, causal, window in FLASH_CASES:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+        q, k, v = randn(b, sq, hp, hd), randn(b, skv, hkv, hd), randn(b, skv, hkv, hd)
+        pos = (start + torch.arange(sq, device=dev, dtype=torch.int32))[None].expand(b, sq)
+        pos = pos.contiguous()
+        kv_valid = torch.full((b,), valid, dtype=torch.int32, device=dev)
+        got = FO.flash_attention(q, k, v, q_pos=pos, kv_valid=kv_valid, causal=causal,
+                                 window=window)
+        want = FR.flash_attention_ref(q, k, v, q_pos=pos, kv_valid=kv_valid,
+                                      causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        steps = row_bf16_steps(got, want)
+        log(f"phase 2: flash_attention B={b} Sq={sq} Skv={skv} Hp={hp} Hkv={hkv} hd={hd} "
+            f"start={start} kv_valid={valid} causal={causal} window={window}: max abs "
+            f"err {err:.4g}; {steps:.2f} bf16 steps at its row's max |out| (tolerance "
+            f"{FLASH_BF16_STEPS}); {err / bf16_step(want):.2f} steps at the whole "
+            f"output's max |out| {float(want.float().abs().max()):.4g}")
+        if not (torch.isfinite(got.float()).all() and steps <= FLASH_BF16_STEPS):
+            raise AssertionError(f"flash kernel differs from plain at {(b, sq, skv, hp, hd)}")
+        if first is None:
+            first = (err, (q, k, v, pos, kv_valid))
+    return first
+
+
 def make_requests(n: int = 16):
     import numpy as np
 
@@ -383,6 +517,7 @@ def engine_config(kernel: str):
 def serve(torch, model, params, kernel: str) -> tuple:
     """One main-path run: launch counts reset just before, read just after."""
     from repro_torch.kernels.bitplane import kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.serving import ContinuousScheduler
 
@@ -390,13 +525,14 @@ def serve(torch, model, params, kernel: str) -> tuple:
     reqs = make_requests()
     K.reset_launches()
     BK.reset_launches()
+    FK.reset_launches()
     t0 = time.perf_counter()
     for r in reqs:
         sched.submit(r)
     sched.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**K.LAUNCHES, **BK.LAUNCHES}
+    launches = {**K.LAUNCHES, **BK.LAUNCHES, **FK.LAUNCHES}
     rep = sched.report()
     if not all(r.done and not r.truncated and len(r.output) == r.max_new_tokens
                for r in reqs):
@@ -413,6 +549,9 @@ def serve(torch, model, params, kernel: str) -> tuple:
     if launches["bitplane_pack"] <= 0 or launches["bitplane_unpack"] <= 0:
         raise AssertionError(f"{kernel}: the KV planes did not go through the "
                              f"pack and unpack kernels: {launches}")
+    if launches["flash_attention"] != n_layers * rep["prefill_chunks"]:
+        raise AssertionError(f"{kernel}: flash launches {launches['flash_attention']} != "
+                             f"{n_layers} x {rep['prefill_chunks']} prefill chunks")
     if not rep["device_bytes_read"] == rep["kv_read_device_bytes"] > 0:
         raise AssertionError(
             f"device_bytes_read {rep['device_bytes_read']} != kv_read_device_bytes "
@@ -471,8 +610,6 @@ def profile_decode(torch, model, params, n: int = 8) -> dict:
     without the profiler, then device kernel time per step (and the top
     kernels) from a torch.profiler window of as many steps.  Eight slots
     decode throughout; no request retires inside either window."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.serving import ContinuousScheduler
@@ -492,12 +629,12 @@ def profile_decode(torch, model, params, n: int = 8) -> dict:
     wall_ms = (time.perf_counter() - t0) / n * 1e3
     per_step = {k: v / n for k, v in {**K.LAUNCHES, **BK.LAUNCHES}.items()}
     log(f"phase 3 launches per steady decode step: {per_step}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def steps():
         for _ in range(n):
             sched.step()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    rows = device_rows(steps, "SmolLM decode steps")
     dev_us = [(getattr(e, "self_device_time_total", 0), e.key) for e in rows]
     busy_ms = sum(t for t, _ in dev_us) / n / 1e3
     top = sorted(dev_us, reverse=True)[:6]
@@ -514,18 +651,23 @@ def profile_decode(torch, model, params, n: int = 8) -> dict:
 def prefill_chunk_launches(torch, model, params, cache) -> dict:
     """Kernel launches of one 256-token prefill chunk into slot 0 of a copy
     of the serving cache (the model's own work; the memory tier adds its
-    page-store unpacks when a page fills)."""
+    page-store unpacks when a page fills): one flash launch a layer."""
     from repro_torch.kernels.bitplane import kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as FK
 
     c = {k: v.clone() for k, v in cache.items()}
     dev = c["planes"].device
     tokens = (torch.arange(256, device=dev)[None] * 7) % model.cfg.vocab
     BK.reset_launches()
+    FK.reset_launches()
     model.prefill_chunk(params, tokens, c, 0, 0, 255)
     torch.cuda.synchronize()
-    launches = dict(BK.LAUNCHES)
+    launches = {**BK.LAUNCHES, **FK.LAUNCHES}
     if launches["bitplane_pack"] <= 0 or launches["bitplane_unpack"] <= 0:
         raise AssertionError(f"a prefill chunk ran no pack/unpack kernel: {launches}")
+    if launches["flash_attention"] != model.cfg.n_layers:
+        raise AssertionError(f"a prefill chunk launched flash {launches['flash_attention']} "
+                             f"times, expected {model.cfg.n_layers}")
     log(f"phase 3 launches per prefill chunk (model): {launches}")
     return launches
 
@@ -604,6 +746,25 @@ def plain_ssd(q=None):
         SO.ssd = saved
 
 
+@contextlib.contextmanager
+def plain_flash(chunk=None):
+    """Route the model's prefill attention through the plain PyTorch flash
+    version on the card (the kernel's reference), for one comparison;
+    ``chunk`` overrides its 512-key chunks (the same function, summed in
+    another order)."""
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    saved = FO.flash_attention
+    FO.flash_attention = lambda q, k, v, *, q_pos, kv_valid, causal=True, window=0: \
+        FR.flash_attention_ref(q, k, v, q_pos=q_pos, kv_valid=kv_valid, causal=causal,
+                               window=window, chunk=chunk or 512)
+    try:
+        yield
+    finally:
+        FO.flash_attention = saved
+
+
 def run_mamba(torch, dev) -> dict:
     """Full-width Mamba2-1.3B through the step functions: prefill 4 seeded
     prompts of 1024 tokens, then 32 greedy decode steps, with the SSD
@@ -611,7 +772,6 @@ def run_mamba(torch, dev) -> dict:
     window over one prefill; the kernel-versus-plain and the
     prefill/decode consistency checks on the logits."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd import kernel as SK
@@ -666,11 +826,9 @@ def run_mamba(torch, dev) -> dict:
         f"{dec_s * 1e3:.3f} ms/step = {SSM_B / dec_s:.1f} tok/s over {SSM_STEPS} steps "
         f"({decode_launches} SSD launches); first greedy tokens {out[:, :6].tolist()}")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prefill_step(params, {"tokens": prompts})
-        torch.cuda.synchronize()
-    rows = [(e.self_device_time_total, e.key) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    prefill_rows = device_rows(lambda: prefill_step(params, {"tokens": prompts}),
+                               "a Mamba2 prefill")
+    rows = [(e.self_device_time_total, e.key) for e in prefill_rows]
     busy_ms = sum(t for t, _ in rows) / 1e3
     ssd_ms = sum(t for t, k in rows if "ssd_kernel" in k) / 1e3
     if busy_ms <= 0 or ssd_ms <= 0:
@@ -680,12 +838,15 @@ def run_mamba(torch, dev) -> dict:
         f"kernel {ssd_ms:.3f} ms ({ssd_ms / busy_ms:.3f} of it), host wall "
         f"{pre_s * 1e3:.2f} ms (unprofiled; busy share {busy_ms / 1e3 / pre_s:.3f}); top "
         f"kernels ms: " + "; ".join(f"{k[:40]} {t / 1e3:.3f}" for t, k in top))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    state = [tok, cache]
+
+    def steps():
         for _ in range(4):
-            tok, cache = serve_step(params, tok, cache)
-        torch.cuda.synchronize()
-    dec_busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 4 / 1e3
+            state[0], state[1] = serve_step(params, state[0], state[1])
+
+    dec_busy = sum(e.self_device_time_total
+                   for e in device_rows(steps, "Mamba2 decode steps")) / 4 / 1e3
+    tok, cache = state
     log(f"phase 5 profile: one decode step {dec_busy:.3f} ms of device kernel time "
         f"against {dec_s * 1e3:.3f} ms host wall (busy share {dec_busy / 1e3 / dec_s:.3f})")
 
@@ -731,36 +892,64 @@ def bf16_step(t) -> float:
     return 2.0 ** (math.floor(math.log2(float(t.float().abs().max()))) - 7)
 
 
+def row_bf16_steps(got, want) -> float:
+    """The largest difference of ``got`` from ``want`` in bf16 steps at the
+    largest magnitude of its own row of ``want`` (the last axis)."""
+    import torch
+
+    w = want.float()
+    rmax = w.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    step = torch.exp2(torch.floor(torch.log2(rmax)) - 7)
+    return float(((got.float() - w).abs() / step).max())
+
+
 def mamba_layer_checks(torch, cfg, params, prompts) -> None:
     """Layer by layer, each layer fed the kernel prefill's hidden state:
     the layer through the kernel against the plain SSD (outputs and
     h_final), and one recurrent decode step from the layer's prefill cache
     of the first L-1 tokens against the prefill's last token."""
-    from repro_torch.models.hybrid import _mamba_layer_seq, _mamba_layer_step
     from repro_torch.models.layers import embed_apply, layer_slice
 
     x = embed_apply(params["embed"], prompts.long())
-    worst = {"kernel_steps": 0.0, "kernel_share": 0.0, "state_rel": 0.0,
-             "decode_steps": 0.0, "decode_share": 0.0}
+    worst = new_worst()
     for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
-        out_k, cache_k = _mamba_layer_seq(lp, x, cfg)
-        with plain_ssd():
-            out_p, cache_p = _mamba_layer_seq(lp, x, cfg)
-        _, short = _mamba_layer_seq(lp, x[:, :-1], cfg)
-        out_d, _ = _mamba_layer_step(lp, x[:, -1], short, cfg)
-        d_k = (out_k.float() - out_p.float()).abs()
-        d_d = (out_d.float() - out_k[:, -1].float()).abs()
-        d_s = (cache_k["state"] - cache_p["state"]).abs().max() / cache_p["state"].abs().max()
-        worst["kernel_steps"] = max(worst["kernel_steps"], float(d_k.max()) / bf16_step(out_p))
-        worst["kernel_share"] = max(worst["kernel_share"], float((d_k > 0).float().mean()))
-        worst["state_rel"] = max(worst["state_rel"], float(d_s))
-        worst["decode_steps"] = max(worst["decode_steps"],
-                                    float(d_d.max()) / bf16_step(out_k[:, -1]))
-        worst["decode_share"] = max(worst["decode_share"], float((d_d > 0).float().mean()))
-        x = out_k
+        x = mamba_layer_check(torch, cfg, layer_slice(params["layers"], i), x, worst)
     torch.cuda.synchronize()
-    log(f"phase 5 layer by layer over {cfg.n_layers} layers (worst layer; bf16 steps at "
+    report_layers("phase 5", f"{cfg.n_layers} layers", worst)
+
+
+def new_worst() -> dict:
+    return {"kernel_steps": 0.0, "kernel_share": 0.0, "state_rel": 0.0,
+            "decode_steps": 0.0, "decode_share": 0.0}
+
+
+def _worse(worst, key_steps, key_share, got, want) -> None:
+    d = (got.float() - want.float()).abs()
+    worst[key_steps] = max(worst[key_steps], float(d.max()) / bf16_step(want))
+    worst[key_share] = max(worst[key_share], float((d > 0).float().mean()))
+
+
+def mamba_layer_check(torch, cfg, lp, x, worst):
+    """One Mamba2 layer fed ``x``: through the SSD kernel against the plain
+    SSD (output and h_final), and one recurrent decode step from the
+    layer's prefill cache of the first L-1 tokens against the prefill's
+    last token.  Returns the kernel run's output."""
+    from repro_torch.models.hybrid import _mamba_layer_seq, _mamba_layer_step
+
+    out_k, cache_k = _mamba_layer_seq(lp, x, cfg)
+    with plain_ssd():
+        out_p, cache_p = _mamba_layer_seq(lp, x, cfg)
+    _, short = _mamba_layer_seq(lp, x[:, :-1], cfg)
+    out_d, _ = _mamba_layer_step(lp, x[:, -1], short, cfg)
+    d_s = (cache_k["state"] - cache_p["state"]).abs().max() / cache_p["state"].abs().max()
+    _worse(worst, "kernel_steps", "kernel_share", out_k, out_p)
+    _worse(worst, "decode_steps", "decode_share", out_d, out_k[:, -1])
+    worst["state_rel"] = max(worst["state_rel"], float(d_s))
+    return out_k
+
+
+def report_layers(phase: str, what: str, worst: dict) -> None:
+    log(f"{phase} layer by layer over {what} (worst layer; bf16 steps at "
         f"the output's largest magnitude): kernel vs plain {worst['kernel_steps']:.2f} "
         f"steps, share differing {worst['kernel_share']:.4f}, h_final rel "
         f"{worst['state_rel']:.3g}; decode step vs prefill {worst['decode_steps']:.2f} "
@@ -771,6 +960,208 @@ def mamba_layer_checks(torch, cfg, params, prompts) -> None:
         raise AssertionError(f"a layer through the SSD kernel disagrees with plain: {worst}")
     if not worst["decode_steps"] <= LAYER_DECODE_STEPS:
         raise AssertionError(f"a decode step disagrees with the prefill: {worst}")
+
+
+def run_zamba(torch, dev) -> dict:
+    """Full-width Zamba2-7B through the step functions: prefill 2 seeded
+    prompts of 4096 tokens, then 32 greedy decode steps from the padded
+    cache, with the flash and SSD launch counts reset just before and read
+    just after each; a profiler window over one prefill; the kernels
+    against their plain versions end to end (after the plain versions'
+    floor) and slot by slot, and decode against prefill."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.launch import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.models.model import prepare_decode_cache
+
+    cfg = get_config("zamba2-7b")
+    n_attn = cfg.n_attn_slots
+    n_mamba = cfg.n_layers - n_attn
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"phase 5b: zamba2-7b, {cfg.n_layers} slots ({n_attn} shared-block calls, "
+        f"{n_mamba} Mamba2 layers), d {cfg.d_model}, {n_params / 1e9:.3f} B parameters "
+        f"initialised on the card in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(1)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (ZAMBA_B, ZAMBA_L)).astype(np.int32)).to(dev)
+    prefill_step, serve_step = make_prefill_step(model), make_serve_step(model)
+
+    def prefill(tokens):
+        FK.reset_launches()
+        SK.reset_launches()
+        t0 = time.perf_counter()
+        tok, cache = prefill_step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = (FK.LAUNCHES["flash_attention"], SK.LAUNCHES["ssd"])
+        if got != (n_attn, n_mamba):
+            raise AssertionError(f"prefill launched flash/ssd {got}, expected "
+                                 f"{(n_attn, n_mamba)}")
+        return tok, cache, secs, got
+
+    prefill(prompts)  # first call: cuBLAS handles, allocator warm-up
+    tok, cache, pre_s, prefill_launches = prefill(prompts)
+    cache = prepare_decode_cache(cfg, cache, ZAMBA_L + ZAMBA_STEPS + 4)
+    tokens = [tok]
+    FK.reset_launches()
+    SK.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(ZAMBA_STEPS):
+        tok, cache = serve_step(params, tok, cache)
+        tokens.append(tok)
+    torch.cuda.synchronize()
+    dec_s = (time.perf_counter() - t0) / ZAMBA_STEPS
+    decode_launches = (FK.LAUNCHES["flash_attention"], SK.LAUNCHES["ssd"])
+    if decode_launches != (0, 0):
+        raise AssertionError(f"decode steps launched flash/ssd {decode_launches}")
+    out = torch.stack(tokens, dim=1)
+    if out.dtype != torch.int32 or not bool(((out >= 0) & (out < cfg.vocab_padded)).all()):
+        raise AssertionError(f"greedy tokens out of range: {out}")
+    if int(cache["len"]) != ZAMBA_L + ZAMBA_STEPS:
+        raise AssertionError(f"cache len {int(cache['len'])} after {ZAMBA_STEPS} steps")
+    log(f"phase 5b: prefill {ZAMBA_B}x{ZAMBA_L} in {pre_s * 1e3:.2f} ms = "
+        f"{ZAMBA_B * ZAMBA_L / pre_s:.1f} tok/s (flash/ssd launches {prefill_launches}); "
+        f"decode {dec_s * 1e3:.3f} ms/step = {ZAMBA_B / dec_s:.1f} tok/s over "
+        f"{ZAMBA_STEPS} steps (flash/ssd launches {decode_launches}); first greedy "
+        f"tokens {out[:, :6].tolist()}")
+
+    prefill_rows = device_rows(lambda: prefill_step(params, {"tokens": prompts}),
+                               "a Zamba2 prefill")
+    rows = [(e.self_device_time_total, e.key) for e in prefill_rows]
+    busy_ms = sum(t for t, _ in rows) / 1e3
+    flash_ms = sum(t for t, k in rows if "flash_attention_kernel" in k) / 1e3
+    ssd_ms = sum(t for t, k in rows if "ssd_kernel" in k) / 1e3
+    n_rec = {name: sum(e.count for e in prefill_rows if name in e.key)
+             for name in ("flash_attention_kernel", "ssd_kernel")}
+    if n_rec != {"flash_attention_kernel": n_attn, "ssd_kernel": n_mamba}:
+        INCOMPLETE_WINDOWS.append(("a Zamba2 prefill", n_rec))
+    if busy_ms <= 0 or flash_ms <= 0 or ssd_ms <= 0:
+        raise AssertionError("the profiler recorded no device time for the prefill kernels")
+    top = sorted(rows, reverse=True)[:6]
+    log(f"phase 5b profile: one prefill {busy_ms:.3f} ms of device kernel time, flash "
+        f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.3f}), SSD {ssd_ms:.3f} ms "
+        f"({ssd_ms / busy_ms:.3f}), host wall {pre_s * 1e3:.2f} ms (unprofiled; busy "
+        f"share {busy_ms / 1e3 / pre_s:.3f}); launches recorded {n_rec}; top kernels ms: "
+        + "; ".join(f"{k[:40]} {t / 1e3:.3f}" for t, k in top))
+    state = [tok, cache]
+
+    def steps():
+        for _ in range(4):
+            state[0], state[1] = serve_step(params, state[0], state[1])
+
+    dec_busy = sum(e.self_device_time_total
+                   for e in device_rows(steps, "Zamba2 decode steps")) / 4 / 1e3
+    tok, cache = state
+    log(f"phase 5b profile: one decode step {dec_busy:.3f} ms of device kernel time "
+        f"against {dec_s * 1e3:.3f} ms host wall (busy share {dec_busy / 1e3 / dec_s:.3f})")
+    del cache
+
+    # the floor first: both plain versions against themselves in another
+    # sum order (SSD chunk 128, flash chunk 256); then both kernels
+    # against both plain versions
+    with plain_ssd(), plain_flash():
+        logits_p, _ = model.prefill(params, {"tokens": prompts})
+    with plain_ssd(128), plain_flash(256):
+        logits_q, _ = model.prefill(params, {"tokens": prompts})
+    logits_k, _ = model.prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    scale = float(logits_p.abs().max())
+    tol = HYBRID_LOGITS_RTOL_OF_MAX * scale
+    d_floor = float((logits_q - logits_p).abs().max())
+    log(f"phase 5b floor: plain (SSD Q=128, flash chunk 256) vs plain (Q=256, chunk "
+        f"512): max|diff| {d_floor:.5f} at max|logit| {scale:.4f}")
+    d_kp = float((logits_k - logits_p).abs().max())
+    agree = float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean())
+    log(f"phase 5b kernels vs plain: max|kernels-plain| {d_kp:.5f}, tolerance {tol:.5f}; "
+        f"argmax agree {agree:.3f}")
+    if not (math.isfinite(scale) and d_kp <= tol):
+        raise AssertionError("prefill logits through the kernels disagree with plain")
+
+    # decode(prefill(p[:, :-1]), p[:, -1]) against prefill(p)
+    _, short = model.prefill(params, {"tokens": prompts[:, :-1]})
+    short = prepare_decode_cache(cfg, short, ZAMBA_L)
+    logits_d, _ = model.decode(params, prompts[:, -1], short)
+    torch.cuda.synchronize()
+    del short
+    d_pd = float((logits_d - logits_k).abs().max())
+    agree = float((logits_d.argmax(-1) == logits_k.argmax(-1)).float().mean())
+    log(f"phase 5b prefill/decode consistency: max|decode-prefill| {d_pd:.5f}, "
+        f"tolerance {tol:.5f}; argmax agree {agree:.3f}")
+    if not d_pd <= tol:
+        raise AssertionError("decode from the prefill cache disagrees with prefill")
+    zamba_layer_checks(torch, cfg, params, prompts)
+    del params
+    return {"prefill_flash_launches": prefill_launches[0],
+            "prefill_ssd_launches": prefill_launches[1],
+            "decode_launches": decode_launches, "prefill_ms": pre_s * 1e3,
+            "decode_ms": dec_s * 1e3, "prefill_device_ms": busy_ms,
+            "flash_device_ms": flash_ms, "ssd_device_ms": ssd_ms,
+            "decode_device_ms": dec_busy}
+
+
+def zamba_layer_checks(torch, cfg, params, prompts) -> None:
+    """Slot by slot, each fed the kernel prefill's hidden state: every
+    Mamba2 layer as in phase 5, and the shared block through the flash
+    kernel against the plain flash (its attention sub-layer within
+    FLASH_BF16_STEPS at each token's scale, its output within
+    SHARED_BLOCK_STEPS) and one decode step through its padded
+    KV cache against the prefill's last token."""
+    from repro_torch.models.attention import attn_apply
+    from repro_torch.models.hybrid import hybrid_counts
+    from repro_torch.models.layers import embed_apply, layer_slice, rmsnorm
+    from repro_torch.models.transformer import block_apply
+
+    n_attn, seg_m, tail = hybrid_counts(cfg)
+    x = embed_apply(params["embed"], prompts.long())
+    b, l = prompts.shape
+    pos = torch.arange(l, dtype=torch.int32, device=x.device)[None].expand(b, l)
+    mamba, shared, attn = new_worst(), new_worst(), new_worst()
+    sp = params["shared"]
+    for i in range(n_attn):
+        seg_lp = layer_slice(params["seg_layers"], i)
+        for j in range(seg_m):
+            x = mamba_layer_check(torch, cfg, layer_slice(seg_lp, j), x, mamba)
+        h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
+        a_k, _ = attn_apply(sp["attn"], h, cfg, pos=pos)
+        out_k, _ = block_apply(sp, x, cfg, pos=pos)
+        with plain_flash():
+            a_p, _ = attn_apply(sp["attn"], h, cfg, pos=pos)
+            out_p, _ = block_apply(sp, x, cfg, pos=pos)
+        attn["kernel_steps"] = max(attn["kernel_steps"], row_bf16_steps(a_k, a_p))
+        attn["kernel_share"] = max(attn["kernel_share"],
+                                   float(((a_k - a_p) != 0).float().mean()))
+        _, (k, v) = block_apply(sp, x[:, :-1], cfg, pos=pos[:, :-1])
+        pad = (0, 0, 0, 0, 0, 1)
+        kv = (torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad))
+        out_d, _ = block_apply(sp, x[:, -1:], cfg, pos=pos[:, -1:], cache=kv, cache_len=l - 1)
+        _worse(shared, "kernel_steps", "kernel_share", out_k, out_p)
+        _worse(shared, "decode_steps", "decode_share", out_d[:, 0], out_k[:, -1])
+        x = out_k
+    for j in range(tail):
+        x = mamba_layer_check(torch, cfg, layer_slice(params["tail_layers"], j), x, mamba)
+    torch.cuda.synchronize()
+    report_layers("phase 5b", f"{n_attn * seg_m + tail} Mamba2 layers", mamba)
+    log(f"phase 5b layer by layer over {n_attn} shared-block calls (worst call): flash "
+        f"kernel vs plain, attention sub-layer {attn['kernel_steps']:.2f} bf16 steps at "
+        f"each token's largest magnitude (tolerance {FLASH_BF16_STEPS}; share differing "
+        f"{attn['kernel_share']:.4f}), block {shared['kernel_steps']:.2f} steps at the "
+        f"output's largest magnitude (tolerance {SHARED_BLOCK_STEPS}; share "
+        f"{shared['kernel_share']:.4f}); decode step vs prefill {shared['decode_steps']:.2f} "
+        f"steps (tolerance {LAYER_DECODE_STEPS}), share differing "
+        f"{shared['decode_share']:.4f}")
+    if not (attn["kernel_steps"] <= FLASH_BF16_STEPS
+            and shared["kernel_steps"] <= SHARED_BLOCK_STEPS):
+        raise AssertionError(f"the shared block through the flash kernel disagrees: {shared}")
+    if not shared["decode_steps"] <= LAYER_DECODE_STEPS:
+        raise AssertionError(f"a shared-block decode step disagrees with prefill: {shared}")
 
 
 def _leaves(tree):
@@ -989,7 +1380,7 @@ def ssd_work(bsz: int, l: int, h: int, p: int, n: int, q: int) -> tuple:
     return nbytes, causal, full
 
 
-def time_ssd_kernel(torch, err: float, case: tuple, mamba: dict) -> dict:
+def time_ssd_kernel(torch, err: float, case: tuple, mamba: dict, zamba: dict) -> dict:
     """The SSD kernel at the Mamba2-1.3B prefill shape on phase 2's inputs
     (420 MB, beyond L2), timed with CUDA events and with the profiler's
     device time, beside the plain version's times and the bound."""
@@ -1018,12 +1409,74 @@ def time_ssd_kernel(torch, err: float, case: tuple, mamba: dict) -> dict:
             "launches": mamba["prefill_launches"],
             "launches_per_prefill_step": mamba["prefill_launches"],
             "launches_per_serve_step": mamba["decode_launches"] / SSM_STEPS,
+            "launches_per_zamba2_prefill_step": zamba["prefill_ssd_launches"],
             "max_abs_err": err, "ms": k_ms, "device_ms": k_dev,
             "plain_ms": p_ms, "plain_device_ms": p_dev,
             "bound_ms": b_ms, "bound_by": b_by, "bound_flops": causal,
             "bound_bytes": nbytes, "tpu_form_flops": full,
             "tpu_form_bound_ms": b_full,
             "library_ms": None, "library": "none"}
+
+
+def flash_work(pos, kv_valid, hp: int, hd: int, causal: bool, window: int) -> int:
+    """Operations of one causal flash launch on these inputs: 4 hd per
+    (query, visible key) pair per head (q·k and p·v, two operations per
+    multiply-add); the pairs follow the masks of this run's q_pos and
+    kv_valid."""
+    import torch
+
+    qp = pos.long()
+    hi = kv_valid.long()[:, None].expand_as(qp)
+    if causal:
+        hi = torch.minimum(hi, qp + 1)
+    lo = (qp - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(qp)
+    pairs = int((hi - lo).clamp(min=0).sum())
+    return 4 * hd * hp * pairs
+
+
+def time_flash_kernel(torch, err: float, case: tuple, zamba: dict, chunk: dict) -> dict:
+    """The flash kernel at the Zamba2-7B prefill shape on phase 2's inputs
+    (59 MB each of q, k and v, beyond L2), timed with CUDA events and with
+    the profiler's device time, beside the plain version's times, the
+    bound and scaled_dot_product_attention on the same inputs (a yardstick
+    the port never calls)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    q, k, v, pos, kv_valid = case
+    b, l, hp, hd = q.shape
+    run = lambda i: FK.flash_attention(q, k, v, pos, kv_valid, causal=True, window=0)  # noqa: E731
+    plain = lambda i: FR.flash_attention_ref(q, k, v, q_pos=pos, kv_valid=kv_valid)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    k_ms, k_dev = cuda_time_ms(run, iters=10), device_ms(run, "flash_attention_kernel", 10)
+    p_ms, p_dev = cuda_time_ms(plain, iters=3), device_ms(plain, "", 3)
+    lib_ms, lib_dev = cuda_time_ms(lib, iters=10), device_ms(lib, "", 10)
+    flops = flash_work(pos, kv_valid, hp, hd, causal=True, window=0)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+    log(f"phase 6: flash_attention {k_ms:.4f} / {k_dev:.4f} ms (events / device) at "
+        f"B={b} L={l} Hp={hp} hd={hd} causal: bound {b_ms:.4f} ms by {b_by} ({flops} "
+        f"bf16 operations over the visible pairs, {nbytes} B), "
+        f"{flops / (k_dev * 1e-3) / 1e12:.1f} TFLOP/s, {b_ms / k_dev:.3f} of the bound; "
+        f"plain {p_ms:.4f} / {p_dev:.4f} ms; scaled_dot_product_attention "
+        f"{lib_ms:.4f} / {lib_dev:.4f} ms")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
+            "launches": zamba["prefill_flash_launches"],
+            "launches_per_prefill_step": zamba["prefill_flash_launches"],
+            "launches_per_serve_step": zamba["decode_launches"][0] / ZAMBA_STEPS,
+            "launches_per_smollm_prefill_chunk": chunk["flash_attention"],
+            "max_abs_err": err, "ms": k_ms, "device_ms": k_dev,
+            "device_ms_in_prefill_step": zamba["flash_device_ms"]
+            / zamba["prefill_flash_launches"],
+            "plain_ms": p_ms, "plain_device_ms": p_dev,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_flops": flops,
+            "bound_bytes": nbytes, "library_ms": lib_ms, "library_device_ms": lib_dev,
+            "library": "torch.nn.functional.scaled_dot_product_attention"}
 
 
 def main() -> int:
@@ -1042,13 +1495,21 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = round(time.perf_counter() - t_start, 1)
+
     log(nvidia_smi_line())
     build_kernels()
+    mark("1")
 
     dev = torch.device("cuda")
     errs = check_kernels(torch, dev)
     errs.update(check_bitplane_kernels(torch, dev))
     errs["ssd"], ssd_inputs = check_ssd_kernel(torch, dev)
+    errs["flash_attention"], flash_inputs = check_flash_kernel(torch, dev)
+    mark("2")
 
     cfg = get_config("smollm-135m")
     model = build_model(cfg)
@@ -1064,15 +1525,25 @@ def main() -> int:
     cache, tok, keeps = snapshot(torch, model, params)
     prefill = prefill_chunk_launches(torch, model, params, cache)
     teacher_forced(torch, model, params, cache, tok, keeps)
+    mark("3")
     qs_launches = run_quickstart(torch)
+    mark("4")
+    del model, params
     mamba = run_mamba(torch, dev)
+    torch.cuda.empty_cache()
+    mark("5")
+    zamba = run_zamba(torch, dev)
+    torch.cuda.empty_cache()
+    mark("5b")
 
     kernels = time_kernels(torch, cache, keeps, errs, {
         "fused": fused_launches, "rung": rung_launches,
         "steps": {"fused": fused_rep["decode_steps"], "rung": rung_rep["decode_steps"]}})
     kernels += time_bitplane_kernels(torch, dev, errs, fused_launches, per_step,
                                      prefill, qs_launches)
-    kernels.append(time_ssd_kernel(torch, errs["ssd"], ssd_inputs, mamba))
+    kernels.append(time_ssd_kernel(torch, errs["ssd"], ssd_inputs, mamba, zamba))
+    kernels.append(time_flash_kernel(torch, errs["flash_attention"], flash_inputs, zamba,
+                                     prefill))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err"):
             if key == "library_ms" and k[key] is None and k.get("library") == "none":
@@ -1084,9 +1555,16 @@ def main() -> int:
                 raise AssertionError(f"{k['name']}: the profiler recorded no {key}")
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its main path")
+    log(f"profiler: {len(PAD_LOST)} windows lost {min(PAD_LOST)} to {max(PAD_LOST)} of "
+        f"their {PROFILER_PAD} pad kernels")
+    if INCOMPLETE_WINDOWS:
+        raise AssertionError(f"profiler windows lost launches: {INCOMPLETE_WINDOWS}")
+    mark("6")
+    log(f"seconds since start at the end of each phase: {marks}")
     log(f"decode tok/s: fused {fused_rep['decode_tok_per_s']:.1f}, "
         f"rung {rung_rep['decode_tok_per_s']:.1f}; mamba2-1.3b prefill "
-        f"{mamba['prefill_ms']:.2f} ms, decode {mamba['decode_ms']:.3f} ms/step; total {time.perf_counter() - t_start:.1f} s")
+        f"{mamba['prefill_ms']:.2f} ms, decode {mamba['decode_ms']:.3f} ms/step; zamba2-7b "
+        f"prefill {zamba['prefill_ms']:.2f} ms, decode {zamba['decode_ms']:.3f} ms/step; total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

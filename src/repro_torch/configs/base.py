@@ -2,9 +2,10 @@
 
 An architecture registers a FULL config (the exact published shape) and a
 SMOKE config (same family, reduced depth/width, runnable on CPU in
-seconds).  The port serves the dense transformer family (``smollm-135m``)
-and the SSM family (``mamba2-1.3b``); the other architectures of the
-reference raise until the slice that ports their family lands.
+seconds).  The port serves the dense transformer family (``smollm-135m``),
+the SSM family (``mamba2-1.3b``) and the hybrid family (``zamba2-7b``);
+the other architectures of the reference raise until the slice that ports
+their family lands.
 """
 
 from __future__ import annotations
@@ -154,12 +155,13 @@ class ModelConfig:
 _ARCH_MODULES = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 #: architectures the reference registers that the port does not serve yet
 _LATER = (
     "yi-34b", "nemotron-4-15b", "yi-9b", "deepseek-moe-16b", "mixtral-8x7b",
-    "zamba2-7b", "llava-next-34b", "whisper-tiny",
+    "llava-next-34b", "whisper-tiny",
 )
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -169,7 +171,8 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch in _LATER:
         raise NotImplementedError(
             f"{arch!r} is not ported yet: the port serves the dense family "
-            f"(smollm-135m) and the SSM family (mamba2-1.3b); other configs "
+            f"(smollm-135m), the SSM family (mamba2-1.3b) and the hybrid "
+            f"family (zamba2-7b); other configs "
             f"and families come with the 'other model families' slice "
             f"(ROADMAP queue 1 item 4)"
         )

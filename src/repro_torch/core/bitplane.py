@@ -7,7 +7,7 @@ significant mantissa bit, so "fetch the top-k planes" is ``planes[:k]`` —
 exactly the partial-plane dynamic-quantization fetch of Fig. 5.
 
 The NumPy half is the reference's, copied (the host-side compressed store
-runs on it).  The port imports no ``ml_dtypes``: bf16 values cross into
+runs on it).  The port imports no NumPy bf16 extension: bf16 values cross into
 NumPy as their ``uint16`` bit patterns (:func:`bf16_to_numpy`), and
 ``from_uint_np`` hands bf16 back the same way.
 """
@@ -125,5 +125,5 @@ def from_uint(u: torch.Tensor) -> torch.Tensor:
 
 def bf16_to_numpy(x: torch.Tensor) -> np.ndarray:
     """bf16 tensor (any device) -> NumPy ``uint16`` array of its bit patterns
-    — how bf16 reaches the host-side store without ``ml_dtypes``."""
+    — how bf16 reaches the host-side store without a NumPy bf16 type."""
     return x.contiguous().view(torch.int16).cpu().numpy().view(np.uint16)

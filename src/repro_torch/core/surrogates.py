@@ -22,8 +22,9 @@ match published LLM data:
 KV tensors are additionally produced by running the repo's own models
 (tests/benchmarks use both sources and report them separately).
 
-The port imports no ``ml_dtypes``: a bf16 surrogate is rounded from float32
-by torch (round to nearest even, as ``ml_dtypes`` rounds) and returned as
+The port imports no NumPy bf16 extension package: a bf16 surrogate is
+rounded from float32 by torch (round to nearest even, as the reference's
+extension type rounds) and returned as
 its raw ``uint16`` bit patterns, and an fp8 surrogate as its ``uint8``
 patterns — the form the host-side store takes (``core.bitplane``).
 """
@@ -93,7 +94,7 @@ def quantized_weights_fp8(shape: tuple, seed: int = 0) -> np.ndarray:
     colmax = np.abs(w).max(axis=0, keepdims=True) + 1e-12
     w = w / colmax * 448.0
     # |w| <= 448, the e4m3 maximum: no value reaches torch's saturation or
-    # ml_dtypes' NaN on overflow, so both round alike (to nearest even)
+    # the reference's NaN on overflow, so both round alike (to nearest even)
     t = torch.from_numpy(np.ascontiguousarray(w, np.float32)).to(torch.float8_e4m3fn)
     return t.view(torch.uint8).numpy()
 

@@ -5,7 +5,7 @@ Each CUDA C++ source under ``src/repro_torch/csrc/`` is compiled with
 first use, into ``build/kernels/`` at the repository root, under a name
 keyed by a hash of the source and the flags; ``ctypes`` loads it.  Nothing
 is built when a kernel module is imported.  The wrappers' shared argument
-check and launch-error check live here too.
+check, alignment and launch-error check live here too.
 """
 
 from __future__ import annotations
@@ -77,6 +77,13 @@ def raise_on(err: int, name: str) -> None:
     """Raise when a launch function returned a CUDA error (0 = launched)."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def aligned(t):
+    """``t`` contiguous at a 16-byte aligned address (the kernels read
+    16-byte vectors); a view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check(name: str, t, dtype, shape: tuple, device) -> None:

@@ -10,15 +10,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._build import aligned
 from repro_torch.kernels.ssd import kernel as K
 from repro_torch.kernels.ssd import ref as R
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 16-byte aligned address (the kernel reads
-    16-byte vectors); a view at an odd offset is copied."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ssd(xdt, da, b_h, c_h, h0=None, chunk: int = 256):
@@ -38,7 +32,7 @@ def ssd(xdt, da, b_h, c_h, h0=None, chunk: int = 256):
     if xdt.device.type == "cpu":
         y, h_final = R.ssd_chunked(xdt, da, b_h, c_h, h0, q)
     elif xdt.device.type == "cuda":
-        y, h_final = K.ssd(*(_aligned(t) for t in (xdt, da, b_h, c_h, h0)), chunk=q)
+        y, h_final = K.ssd(*(aligned(t) for t in (xdt, da, b_h, c_h, h0)), chunk=q)
     else:
         raise ValueError(f"ssd runs on cpu or cuda tensors, got {xdt.device}")
     return y[:, :l], h_final

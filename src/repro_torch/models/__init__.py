@@ -1,3 +1,3 @@
-"""Models of the port (the dense transformer family so far)."""
+"""Models of the port: the dense, SSM (Mamba2) and hybrid (Zamba2) families."""
 
 from repro_torch.models.model import Model, build_model  # noqa: F401

@@ -3,9 +3,13 @@
 
 * q-heads may be padded (``cfg.pad_heads_to``); padded heads have zero
   ``wq`` rows and are masked before ``wo``.  Each q head reads kv head
-  ``h // rep_p`` through a static head map (grouped layout).
-* Prefill attention is a chunked online softmax in float32
-  (:func:`flash_attention`) — plain torch, as the reference's is jnp.
+  ``h // rep_p``, ``rep_p = Hp / Hkv`` (grouped layout).
+* Prefill attention is the flash-attention forward
+  (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`): the
+  hand-written kernel on CUDA, its plain PyTorch version on the CPU (the
+  reference runs a jnp online softmax here, whose TPU form is its Pallas
+  flash kernel).  A one-token step over a dense cache runs
+  :func:`decode_attention`, as in the reference.
 * A serving cache is either dense bf16 rows ``(k, v)`` or packed uint8
   bit-planes ``(k_planes, v_planes)`` of layout (bits, B, S, Hkv, hd//8).
   Bit-plane decode packs the new token and runs the paged-attention
@@ -24,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention.ops import (
     batched_ladder_paged_attention,
     pack_kv_planes,
@@ -32,16 +37,6 @@ from repro_torch.kernels.paged_attention.ops import (
 from repro_torch.models.layers import apply_rope, he_init, rope_angles
 
 NEG_INF = -1e30
-
-
-def head_map_static(n_q_heads_padded, n_heads, n_kv_heads) -> np.ndarray:
-    """Static q-head -> kv-head mapping, *grouped* layout: q-head ``h``
-    serves kv head ``h // rep_p`` where ``rep_p = Hp / Hkv``."""
-    hkv = max(1, n_kv_heads)
-    if n_q_heads_padded % hkv != 0:
-        raise ValueError(f"{n_q_heads_padded} q heads over {n_kv_heads} kv heads")
-    rep_p = n_q_heads_padded // hkv
-    return np.arange(n_q_heads_padded) // rep_p
 
 
 def valid_q_heads(n_q_heads_padded, n_heads, n_kv_heads) -> np.ndarray:
@@ -68,46 +63,6 @@ def _scale(hd: int, device) -> torch.Tensor:
     return torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32, device=device)
 
 
-def flash_attention(q, k, v, head_map, *, q_pos, kv_valid, chunk: int = 512):
-    """Causal online-softmax attention (forward of the reference's
-    ``flash_attention`` / ``_flash_attention_body``).
-
-    q: (B, Sq, Hp, hd) bf16; k/v: (B, Skv, Hkv, hd); head_map: (Hp,) ints;
-    q_pos: (B, Sq) absolute positions; kv_valid: int or (B,) valid entries.
-    Scores and the softmax state are float32; ``p`` is rounded to q's dtype
-    before ``p·v``, as in the reference.  Returns (B, Sq, Hp, hd) in q.dtype.
-    """
-    b, sq, hp, hd = q.shape
-    skv = k.shape[1]
-    chunk = int(min(chunk, skv))
-    hm = torch.as_tensor(head_map, device=q.device, dtype=torch.long)
-    scale = _scale(hd, q.device)
-    kv_valid = torch.as_tensor(kv_valid, device=q.device)
-    if kv_valid.dim() == 0:
-        kv_valid = kv_valid.expand(b)
-    qf = q.float()
-    m = torch.full((b, hp, sq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, hp, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hp, sq, hd), dtype=torch.float32, device=q.device)
-    for c0 in range(0, skv, chunk):
-        kh = k[:, c0:c0 + chunk][:, :, hm].float()  # (B, ck, Hp, hd)
-        vh = v[:, c0:c0 + chunk][:, :, hm].float()
-        ck = kh.shape[1]
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kh) * scale
-        kpos = torch.arange(c0, c0 + ck, device=q.device)[None, None, None, :]
-        ok = (kpos < kv_valid[:, None, None, None]) & (kpos <= q_pos[:, None, :, None])
-        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p.to(q.dtype).float(), vh)
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
-
-
 def decode_attention(q, k, v, *, q_pos, kv_valid):
     """Single-token causal attention over a dense cache (the reference's
     ``decode_attention``): q (B, 1, Hp, hd); k/v (B, Skv, Hkv, hd).  GQA is
@@ -131,7 +86,7 @@ def decode_attention(q, k, v, *, q_pos, kv_valid):
     return o.reshape(b, 1, hp, hd).to(q.dtype)
 
 
-def _bitplane_cache_step(q, k, v, hm, cache, *, pos, cache_len, kv_planes,
+def _bitplane_cache_step(q, k, v, cache, *, pos, cache_len, kv_planes,
                          keeps, decode_kernel="fused"):
     """One step against a bit-plane packed device cache (reference
     ``_bitplane_cache_step``, without its ring branch).
@@ -155,7 +110,7 @@ def _bitplane_cache_step(q, k, v, hm, cache, *, pos, cache_len, kv_planes,
         vd = unpack_kv(vp, bits, bits)
         kd[:, cache_len:end] = k.to(kd.dtype)
         vd[:, cache_len:end] = v.to(vd.dtype)
-        out = flash_attention(q, kd, vd, hm, q_pos=pos, kv_valid=end)
+        out = flash_ops.flash_attention(q, kd, vd, q_pos=pos, kv_valid=end)
         # in place: the reference's dynamic_update_slice of the packed rows
         kp[:, :, cache_len:end] = pack_kv_planes(k, bits)
         vp[:, :, cache_len:end] = pack_kv_planes(v, bits)
@@ -198,7 +153,6 @@ def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
             "comes with the ring backend slice (ROADMAP queue 1 item 2)"
         )
     hp = params["wq"].shape[1]
-    hm = head_map_static(hp, cfg.n_heads, cfg.n_kv_heads)
     d = x.shape[-1]
     b, s = x.shape[0], x.shape[1]
     q = (x.reshape(b * s, d) @ params["wq"].reshape(d, -1)).reshape(b, s, hp, -1)
@@ -210,10 +164,10 @@ def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
 
     new_kv = None
     if cache is None:
-        out = flash_attention(q, k, v, hm, q_pos=pos, kv_valid=pos[:, -1] + 1)
+        out = flash_ops.flash_attention(q, k, v, q_pos=pos, kv_valid=pos[:, -1] + 1)
         new_kv = (k, v)
     elif cache[0].dtype == torch.uint8:
-        out = _bitplane_cache_step(q, k, v, hm, cache, pos=pos,
+        out = _bitplane_cache_step(q, k, v, cache, pos=pos,
                                    cache_len=cache_len, kv_planes=kv_planes,
                                    keeps=keeps, decode_kernel=decode_kernel)
     elif torch.is_tensor(cache_len) and cache_len.dim() == 1:
@@ -230,11 +184,20 @@ def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
     else:
         ck, cv = cache
         end = int(cache_len) + s
+        if end > ck.shape[1]:
+            # the reference's dynamic_update_slice would clamp the write
+            # to the last rows and go on silently
+            raise ValueError(
+                f"{s} token(s) at {int(cache_len)} overrun the cache of "
+                f"{ck.shape[1]} rows; pad it first (prepare_decode_cache)")
         # in place: the reference's dynamic_update_slice at cache_len
         ck[:, cache_len:end] = k.to(ck.dtype)
         cv[:, cache_len:end] = v.to(cv.dtype)
-        out = flash_attention(q, ck[:, :end], cv[:, :end], hm, q_pos=pos,
-                              kv_valid=end)
+        # over the whole cache, rows past `end` masked, as the reference
+        if s == 1:
+            out = decode_attention(q, ck, cv, q_pos=pos, kv_valid=end)
+        else:
+            out = flash_ops.flash_attention(q, ck, cv, q_pos=pos, kv_valid=end)
 
     if hp != cfg.n_heads:  # mask padded heads
         valid = torch.as_tensor(valid_q_heads(hp, cfg.n_heads, cfg.n_kv_heads),

@@ -10,8 +10,8 @@ import torch
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
-        # an ml_dtypes array: read its bits through a 16-bit view, so the
-        # port never imports ml_dtypes
+        # a NumPy bf16 extension array: read its bits through a 16-bit
+        # view, so the port never imports that extension package
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(a.copy()).to(device)
 

@@ -1,16 +1,32 @@
-"""SSM LM (Mamba2 family): the SSM-only part of the reference's
-``models/hybrid.py``.
+"""SSM LM (Mamba2 family) and hybrid Mamba2 + shared-attention LM
+(Zamba2): port of the reference's ``models/hybrid.py``.
 
 Parameters are a nested dict in the reference's layout, each layer's
-tensors stacked on a leading ``n_layers`` axis, so weights carry across bit
-for bit (:mod:`repro_torch.models.convert`); a Python loop over that axis
-replaces ``lax.scan``.  Decode caches are the stacked Mamba states, O(1) in
-the context length: ``{'layers': {'state': (L, B, H, N, P) f32, 'conv_x',
-'conv_b', 'conv_c': (L, B, W-1, C) bf16}, 'len'}``.  Like the reference,
-prefill and decode return new caches and leave the given one as it was.
+tensors stacked on a leading layer axis, so weights carry across bit for
+bit (:mod:`repro_torch.models.convert`); Python loops over those axes
+replace ``lax.scan``.
 
-The hybrid Mamba2 + shared-attention LM (Zamba2) comes with a later slice
-(``build_model`` raises for it); the training loss raises here.
+Mamba2: decode caches are the stacked Mamba states, O(1) in the context
+length: ``{'layers': {'state': (L, B, H, N, P) f32, 'conv_x', 'conv_b',
+'conv_c': (L, B, W-1, C) bf16}, 'len'}``.  Like the reference, prefill and
+decode return new caches and leave the given one as it was.
+
+Zamba2: ``n_layers`` slots; every ``attn_period``-th slot is one SHARED
+transformer block (one parameter set, called ``n_attn`` times), the others
+Mamba2 layers: ``n_attn`` segments of (period - 1) Mamba2 layers and one
+shared-block call, then the tail's leftover Mamba2 layers.  Parameters:
+``seg_layers`` (n_attn, seg_m, ...), ``tail_layers`` (tail, ...) (an
+empty leading axis when tail = 0) and ``shared`` {ln1, attn, ln2, mlp},
+the dense family's block (:func:`repro_torch.models.transformer.block_apply`)
+with its rounding points.
+Caches: ``{'seg_ssm': (n_attn, seg_m, ...), 'tail_ssm': (tail, ...), 'k',
+'v': (n_attn, B, S, Hkv, hd), 'len'}``, one KV cache per shared-block call.
+Prefill returns a new cache; decode returns new Mamba states but writes the
+token's k/v into the given cache's k/v rows in place (as the dense family
+does), so the cache must first be padded to the decode length
+(``models.model.prepare_decode_cache``).
+
+The training losses raise here (they come with the training slice).
 """
 
 from __future__ import annotations
@@ -20,6 +36,7 @@ import torch
 from repro_torch.models.layers import (
     embed_apply,
     embed_params,
+    empty_layers,
     he_init,
     layer_slice,
     pdtype,
@@ -28,6 +45,7 @@ from repro_torch.models.layers import (
     stack_layers,
 )
 from repro_torch.models.ssm import ssm_apply, ssm_decode_step, ssm_init_cache, ssm_params
+from repro_torch.models.transformer import block_apply, block_params
 
 
 def _mamba_layer_params(generator: torch.Generator, cfg, dtype) -> dict:
@@ -51,6 +69,13 @@ def _mamba_layer_step(lp: dict, x_t: torch.Tensor, cache: dict, cfg):
 
 def _head_w(params: dict) -> torch.Tensor:
     return params.get("lm_head", {"w": params["embed"]["table"]})["w"]
+
+
+def hybrid_counts(cfg) -> tuple[int, int, int]:
+    """(n_attn segments, Mamba2 layers per segment, tail Mamba2 layers)."""
+    p = cfg.attn_period
+    n_attn = cfg.n_layers // p
+    return n_attn, p - 1, cfg.n_layers - n_attn * p
 
 
 # ---------------------------------------------------------------------------
@@ -129,5 +154,138 @@ def init_ssm_lm_cache(cfg, batch: int, device, dtype=None) -> dict:
     return {
         "layers": {k: torch.zeros((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype,
                                   device=device) for k, t in one.items()},
+        "len": torch.tensor(0, dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Hybrid LM (zamba2)
+# ---------------------------------------------------------------------------
+
+
+def _stacked_caches(caches: list, cfg, batch: int, device) -> dict:
+    """Per-layer Mamba caches -> one tree on a leading layer axis; an empty
+    list gives that tree with a leading axis of 0, as the reference's tail
+    scan over no layers does."""
+    if caches:
+        return stack_layers(caches)
+    return empty_layers(ssm_init_cache(cfg, batch, device, pdtype(cfg)))
+
+
+def init_hybrid_params(cfg, generator: torch.Generator) -> dict:
+    """Random weights in the reference's layout, drawn from ``generator``
+    on the device the parameters should live on."""
+    n_attn, seg_m, tail = hybrid_counts(cfg)
+    dtype = pdtype(cfg)
+    d = cfg.d_model
+
+    def mamba(n):
+        return stack_layers([_mamba_layer_params(generator, cfg, dtype) for _ in range(n)])
+
+    embed = embed_params(generator, cfg.vocab_padded, d, dtype)
+    seg_layers = stack_layers([mamba(seg_m) for _ in range(n_attn)])
+    # an empty leading axis when tail = 0, as the reference keeps
+    tail_layers = mamba(tail) if tail else empty_layers(
+        layer_slice(layer_slice(seg_layers, 0), 0))
+    params = {
+        "embed": embed,
+        "seg_layers": seg_layers,
+        "tail_layers": tail_layers,
+        "shared": block_params(generator, cfg, dtype),
+        "final_norm": rmsnorm_params(d, dtype, generator.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": he_init((cfg.vocab_padded, d), generator, dtype)}
+    return params
+
+
+def hybrid_loss(params, cfg, batch):
+    raise NotImplementedError(
+        "hybrid_loss is not ported yet: it comes with the training slice "
+        "(ROADMAP queue 1 item 5)"
+    )
+
+
+def hybrid_prefill(params: dict, cfg, batch: dict):
+    """batch {'tokens': (B, L) int} -> (last-token logits (B, Vpad) f32,
+    cache with L rows of k/v per shared-block call)."""
+    n_attn, seg_m, tail = hybrid_counts(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_apply(params["embed"], tokens.long())
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    seg_caches, ks, vs = [], [], []
+    for i in range(n_attn):
+        seg_lp = layer_slice(params["seg_layers"], i)
+        caches = []
+        for j in range(seg_m):
+            x, layer_cache = _mamba_layer_seq(layer_slice(seg_lp, j), x, cfg)
+            caches.append(layer_cache)
+        seg_caches.append(stack_layers(caches))
+        x, (k, v) = block_apply(params["shared"], x, cfg, pos=pos)
+        ks.append(k)
+        vs.append(v)
+    tail_caches = []
+    for j in range(tail):
+        x, layer_cache = _mamba_layer_seq(layer_slice(params["tail_layers"], j), x, cfg)
+        tail_caches.append(layer_cache)
+    cache = {
+        "seg_ssm": stack_layers(seg_caches),
+        "tail_ssm": _stacked_caches(tail_caches, cfg, b, x.device),
+        "k": torch.stack(ks),
+        "v": torch.stack(vs),
+        "len": torch.tensor(s, dtype=torch.int32, device=x.device),
+    }
+    return _logits(params, cfg, x[:, -1]), cache
+
+
+def hybrid_decode(params: dict, cfg, token: torch.Tensor, cache: dict):
+    """token (B,) int -> (logits (B, Vpad) f32, new cache).  The token's
+    k/v land in row ``cache['len']`` of the given cache's k/v, in place;
+    raises when that row lies past the cache (pad it first)."""
+    n_attn, seg_m, tail = hybrid_counts(cfg)
+    x = embed_apply(params["embed"], token.long())
+    n = int(cache["len"])
+    pos = torch.full((x.shape[0], 1), n, dtype=torch.int32, device=x.device)
+    seg_caches = []
+    for i in range(n_attn):
+        seg_lp = layer_slice(params["seg_layers"], i)
+        seg_c = layer_slice(cache["seg_ssm"], i)
+        caches = []
+        for j in range(seg_m):
+            x, layer_cache = _mamba_layer_step(layer_slice(seg_lp, j), x,
+                                               layer_slice(seg_c, j), cfg)
+            caches.append(layer_cache)
+        seg_caches.append(stack_layers(caches))
+        y, _ = block_apply(params["shared"], x[:, None, :], cfg, pos=pos,
+                           cache=(cache["k"][i], cache["v"][i]), cache_len=n)
+        x = y[:, 0]
+    tail_caches = []
+    for j in range(tail):
+        x, layer_cache = _mamba_layer_step(layer_slice(params["tail_layers"], j), x,
+                                           layer_slice(cache["tail_ssm"], j), cfg)
+        tail_caches.append(layer_cache)
+    new_cache = {
+        "seg_ssm": stack_layers(seg_caches),
+        "tail_ssm": _stacked_caches(tail_caches, cfg, x.shape[0], x.device),
+        "k": cache["k"],
+        "v": cache["v"],
+        "len": cache["len"] + 1,
+    }
+    return _logits(params, cfg, x), new_cache
+
+
+def init_hybrid_cache(cfg, batch: int, max_len: int, device, dtype=None) -> dict:
+    dtype = dtype or pdtype(cfg)
+    n_attn, seg_m, tail = hybrid_counts(cfg)
+    one = ssm_init_cache(cfg, batch, device, dtype)
+    kv_shape = (n_attn, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "seg_ssm": {k: torch.zeros((n_attn, seg_m) + tuple(t.shape), dtype=t.dtype,
+                                   device=device) for k, t in one.items()},
+        "tail_ssm": {k: torch.zeros((tail,) + tuple(t.shape), dtype=t.dtype,
+                                    device=device) for k, t in one.items()},
+        "k": torch.zeros(kv_shape, dtype=dtype, device=device),
+        "v": torch.zeros(kv_shape, dtype=dtype, device=device),
         "len": torch.tensor(0, dtype=torch.int32, device=device),
     }

@@ -97,6 +97,13 @@ def stack_layers(trees: list) -> dict:
             else torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
+def empty_layers(one: dict) -> dict:
+    """A tree shaped like one layer's, stacked on a leading layer axis of
+    length 0 (the reference's scan over no layers)."""
+    return {k: empty_layers(v) if isinstance(v, dict) else v.new_zeros((0,) + tuple(v.shape))
+            for k, v in one.items()}
+
+
 def embed_params(generator: torch.Generator, vocab_padded: int, d: int,
                  dtype=torch.bfloat16) -> dict:
     return {"table": he_init((vocab_padded, d), generator, dtype, fan_in=d)}

@@ -32,6 +32,21 @@ from repro_torch.models.layers import (
 )
 
 
+def block_params(generator: torch.Generator, cfg, dtype) -> dict:
+    """One pre-norm block's weights {ln1, attn, ln2, mlp (SwiGLU)}."""
+    d, ff, dev = cfg.d_model, cfg.d_ff, generator.device
+    return {
+        "ln1": rmsnorm_params(d, dtype, dev),
+        "attn": attn_params(generator, cfg, dtype),
+        "ln2": rmsnorm_params(d, dtype, dev),
+        "mlp": {
+            "w_gate": he_init((d, ff), generator, dtype),
+            "w_in": he_init((d, ff), generator, dtype),
+            "w_out": he_init((ff, d), generator, dtype, fan_in=ff),
+        },
+    }
+
+
 def init_lm_params(cfg, generator: torch.Generator) -> dict:
     """Random weights in the reference's layout, drawn from ``generator``
     (on the device the parameters should live on)."""
@@ -39,23 +54,11 @@ def init_lm_params(cfg, generator: torch.Generator) -> dict:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (the dense slice only)")
     dtype = pdtype(cfg)
-    dev = generator.device
-    d, ff = cfg.d_model, cfg.d_ff
+    d = cfg.d_model
     embed = embed_params(generator, cfg.vocab_padded, d, dtype)
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "ln1": rmsnorm_params(d, dtype, dev),
-            "attn": attn_params(generator, cfg, dtype),
-            "ln2": rmsnorm_params(d, dtype, dev),
-            "mlp": {
-                "w_gate": he_init((d, ff), generator, dtype),
-                "w_in": he_init((d, ff), generator, dtype),
-                "w_out": he_init((ff, d), generator, dtype, fan_in=ff),
-            },
-        })
+    layers = [block_params(generator, cfg, dtype) for _ in range(cfg.n_layers)]
     params = {"embed": embed, "layers": stack_layers(layers),
-              "final_norm": rmsnorm_params(d, dtype, dev)}
+              "final_norm": rmsnorm_params(d, dtype, generator.device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": he_init((cfg.vocab_padded, d), generator, dtype)}
     return params
@@ -63,6 +66,24 @@ def init_lm_params(cfg, generator: torch.Generator) -> dict:
 
 def head_weight(params: dict) -> torch.Tensor:
     return params.get("lm_head", {"w": params["embed"]["table"]})["w"]
+
+
+def block_apply(lp, x, cfg, *, pos, cache=None, cache_len=None, kv_planes=None,
+                keeps=None, decode_kernel="fused"):
+    """One pre-norm transformer block {ln1, attn, ln2, mlp} over x (B, S, d)
+    (the dense family's layer and Zamba2's shared block).  The cache
+    arguments are :func:`attn_apply`'s.  Returns (x, new_kv): new_kv is
+    the projected (k, v) when ``cache`` is None."""
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    attn_out, new_kv = attn_apply(lp["attn"], h, cfg, pos=pos, cache=cache,
+                                  cache_len=cache_len, kv_planes=kv_planes,
+                                  keeps=keeps, decode_kernel=decode_kernel)
+    # the reference's compiled layer fuses this residual add into the norm
+    # after it and keeps the sum in float32 there; the residual stream
+    # itself is stored rounded
+    h2 = rmsnorm(x.float() + attn_out.float(), lp["ln2"], cfg.norm_eps).to(x.dtype)
+    x = x + attn_out
+    return x + mlp_apply(lp["mlp"], h2, cfg.act), new_kv
 
 
 def run_stack(params, cfg, x, pos, cache=None, keeps=None, decode_kernel="fused"):
@@ -75,19 +96,10 @@ def run_stack(params, cfg, x, pos, cache=None, keeps=None, decode_kernel="fused"
     kn, vn = ("k_planes", "v_planes") if bitplane else ("k", "v")
     kv_planes = cache.get("planes") if bitplane else None
     for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
         kv = None if cache is None else (cache[kn][i], cache[vn][i])
-        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        attn_out, _ = attn_apply(lp["attn"], h, cfg, pos=pos, cache=kv,
-                                 cache_len=cache_len, kv_planes=kv_planes,
-                                 keeps=keeps, decode_kernel=decode_kernel)
-        # the reference's compiled layer fuses this residual add into the
-        # norm after it and keeps the sum in float32 there; the residual
-        # stream itself is stored rounded
-        h2 = rmsnorm(x.float() + attn_out.float(), lp["ln2"],
-                     cfg.norm_eps).to(x.dtype)
-        x = x + attn_out
-        x = x + mlp_apply(lp["mlp"], h2, cfg.act)
+        x, _ = block_apply(layer_slice(params["layers"], i), x, cfg, pos=pos,
+                           cache=kv, cache_len=cache_len, kv_planes=kv_planes,
+                           keeps=keeps, decode_kernel=decode_kernel)
     return x
 
 

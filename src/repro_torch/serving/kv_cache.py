@@ -18,8 +18,8 @@ partial-plane reads).
 A copy of the reference's ``serving/kv_cache.py`` without its
 shared-prefix machinery (prefix sharing is a later slice).  Pages arrive as
 NumPy arrays of raw bf16 bit patterns (``uint16``), which the controller
-compresses exactly as the reference compresses ``ml_dtypes.bfloat16``
-pages.
+compresses exactly as the reference compresses its NumPy bf16
+extension-type pages.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""The port's bit-plane and SSD CUDA kernels against their plain PyTorch
-versions on the card.  Every test here needs an NVIDIA GPU and ``nvcc``, carries
+"""The port's bit-plane, SSD and flash-attention CUDA kernels against their
+plain PyTorch versions on the card.  Every test here needs an NVIDIA GPU and ``nvcc``, carries
 the ``cuda`` marker and skips without a GPU.  The file imports no JAX, so
 it runs on the GPU host:
 
@@ -10,7 +10,12 @@ matmul takes exact bf16 x bf16 products in float32 on both sides; the
 kernel sums them in K order and the plain version through cuBLAS in an
 order of its own, so it is held to atol = rtol = 1e-4.  The SSD scan is
 float32 on both sides and differs only in the order of its sums: it is held
-to 1e-4 of the largest output (about 1e-5 measured at full width).
+to 1e-4 of the largest output (about 1e-5 measured at full width).  Flash
+attention rounds p to bf16 at the running max of its 64-key tiles, the plain
+version at that of its 512-key chunks, and the float32 sums run in another
+order, which can flip a rounding of p or of the output: it is held to two
+bf16 steps at the largest magnitude of each output row (batch row, query,
+head), since a causal row's output shrinks with its depth.
 """
 
 import pytest
@@ -21,12 +26,16 @@ from repro_torch.kernels.bitplane import ref as R
 from repro_torch.kernels.bitplane_matmul import kernel as MK
 from repro_torch.kernels.bitplane_matmul import ops as MM
 from repro_torch.kernels.bitplane_matmul import ref as MR
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as FO
+from repro_torch.kernels.flash_attention import ref as FR
 from repro_torch.kernels.ssd import kernel as SK
 from repro_torch.kernels.ssd import ops as SO
 from repro_torch.kernels.ssd import ref as SR
 
 MATMUL_TOL = 1e-4
 SSD_REL_TOL = 1e-4
+FLASH_BF16_STEPS = 2
 
 
 def _cuda():
@@ -125,4 +134,67 @@ def test_cuda_mamba_prefill_runs_the_kernel_once_per_layer():
         tok, cache = serve(params, tok, cache)
     torch.cuda.synchronize()
     assert SK.LAUNCHES["ssd"] == 0
+    assert tok.dtype == torch.int32 and int(cache["len"]) == 74
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,hp,hkv,hd,start,valid,causal,window", [
+    (2, 4096, 4096, 32, 32, 112, 0, 4096, True, 0),   # Zamba2-7B prefill
+    (1, 64, 1024, 9, 3, 64, 0, 64, True, 0),          # SmolLM chunks: first,
+    (1, 512, 1024, 9, 3, 64, 448, 960, True, 0),      # ... at an offset,
+    (1, 1, 1024, 9, 3, 64, 1000, 1001, True, 0),      # ... one row
+    (2, 1000, 1000, 8, 2, 64, 0, 1000, True, 0),      # ragged L
+    (1, 256, 256, 4, 4, 128, 0, 256, True, 64),       # sliding window
+    (2, 64, 192, 6, 3, 32, 0, 150, False, 0),         # bidirectional, valid < Skv
+    (3, 40, 40, 4, 4, 16, 0, 40, True, 0),            # the smoke config
+])
+def test_cuda_flash_attention_matches_plain_on_card(b, sq, skv, hp, hkv, hd, start,
+                                                    valid, causal, window):
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(sq * hp + hd)
+    q = torch.randn((b, sq, hp, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, skv, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, skv, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    pos = (start + torch.arange(sq, device=dev, dtype=torch.int32))[None].expand(b, sq)
+    FK.reset_launches()
+    got = FO.flash_attention(q, k, v, q_pos=pos, kv_valid=valid, causal=causal,
+                             window=window)
+    assert FK.LAUNCHES["flash_attention"] == 1
+    want = FR.flash_attention_ref(q, k, v, q_pos=pos, kv_valid=valid, causal=causal,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    rmax = want.float().abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    step = torch.exp2(torch.floor(torch.log2(rmax)) - 7)
+    assert ((got.float() - want.float()).abs() <= FLASH_BF16_STEPS * step).all()
+
+
+@pytest.mark.cuda
+def test_cuda_zamba2_prefill_runs_flash_once_per_shared_block():
+    """The smoke Zamba2 on the card: prefill launches the flash kernel once
+    per shared-block call and the SSD kernel once per Mamba2 layer; the
+    serve steps launch neither."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.models.model import prepare_decode_cache
+
+    _cuda()
+    cfg = get_config("zamba2-7b", smoke=True)
+    model = build_model(cfg)
+    params = model.init()
+    tokens = torch.randint(0, 512, (2, 70), device="cuda", dtype=torch.int32)
+    FK.reset_launches()
+    SK.reset_launches()
+    tok, cache = make_prefill_step(model)(params, {"tokens": tokens})
+    assert FK.LAUNCHES["flash_attention"] == cfg.n_attn_slots
+    assert SK.LAUNCHES["ssd"] == cfg.n_layers - cfg.n_attn_slots
+    cache = prepare_decode_cache(cfg, cache, 74)
+    FK.reset_launches()
+    SK.reset_launches()
+    serve = make_serve_step(model)
+    for _ in range(4):
+        tok, cache = serve(params, tok, cache)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention"] == 0 and SK.LAUNCHES["ssd"] == 0
     assert tok.dtype == torch.int32 and int(cache["len"]) == 74
