@@ -10,10 +10,11 @@ nothing of JAX and nothing of the JAX package ``repro``.
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
-1. The card's name and power limit; build the five kernel libraries
+1. The card's name and power limit; build the six kernel libraries
    from ``src/repro_torch/csrc`` (paged attention, bit-plane pack/unpack,
-   bit-plane matmul, the SSD scan, flash attention; one ``nvcc`` each, all
-   started together) and report the build times and ptxas register lines.
+   bit-plane matmul, the SSD scan, flash attention, exponent-delta
+   encode/decode; one ``nvcc`` each, all started together) and report the
+   build times and ptxas register lines.
 2. Each kernel against its plain PyTorch version on the card.  Paged
    attention at the serving shapes of full-width SmolLM-135M (B=8,
    S=1024, Hkv=3, rep=3, hd=64): mixed plane counts {8, 12, 16} with
@@ -28,19 +29,35 @@ Phases (any failure exits non-zero; no phase's error is caught):
    112, causal), at SmolLM-135M prefill chunks (64 and 512 rows at offsets
    0 and 448 over 1024 slot rows, 9 q / 3 kv heads of 64), at a ragged
    L=1000, with a 64-key window and bidirectional with kv_valid < Skv.
+   Exponent-delta encode and decode bit for bit at a 512-token serving
+   span (4 stored layers x 2 streams x 32 pages of 192 channels), a decode
+   page fill (8 pages), the quickstart's KV, fp8_e4m3 in uint8, ragged row
+   counts, and decode of top-k truncations (keep 12, 8, 4).
 3. Serve 16 requests through ``ContinuousScheduler`` on full-width
    SmolLM-135M (random weights from a seeded ``torch.Generator``, 30
    layers) with bit-plane device KV and a precision ladder, once through
    the fused kernel and once through the rung kernel, with launch counts
-   reset before and read after each run (attention, pack and unpack
-   kernels); a torch.profiler window of steady decode steps (device
+   reset before and read after each run (attention, pack, unpack and
+   exponent-delta kernels: one encode per page-writing span or
+   re-activated page, as the backend counts them, and no decode); a
+   torch.profiler window of steady decode steps (device
    kernel time against host wall time, and launches per decode step);
    the launches of one prefill chunk (30 flash launches, one a layer); then one teacher-forced decode step
    from a snapshot of the serving cache, three ways (fused, rung, plain),
    whose logits must agree.
+3c. The memory tier's round trip at the serving width: the snapshot's
+   device KV of enough slots for at least 512 pages (4 stored layers x 2
+   streams, 192 channels) through ``put_sequence`` into a card store and a
+   CPU store fed the same bits (equal blobs and controller totals), then
+   ``get_sequence`` on the card at keep 16 (the device KV bit for bit), 12,
+   8, 4 and the ladder's per-page keeps (each equal to the CPU store's
+   read); one encode and one pack launch per put, one unpack and one
+   decode launch per get.
 4. The paper-pipeline quickstart (``repro_torch.quickstart``) on the card,
-   launch counts reset before and read after: its byte counts must equal
-   the CPU run's and its matmul error the plain version's.
+   launch counts reset before and read after (two packs, one
+   exponent-delta encode for the KV surrogate, two matmuls): its byte
+   counts must equal the CPU run's and its matmul error the plain
+   version's.
 5. Full-width Mamba2-1.3B (48 layers, random weights from a seeded
    ``torch.Generator``) through ``make_prefill_step`` on 4 prompts of 1024
    tokens, then 32 greedy ``make_serve_step`` steps, the SSD launch count
@@ -59,9 +76,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    over one prefill; prefill logits through both kernels against both
    plain versions (after the plain versions' own floor), decode against
    prefill, and every slot layer by layer.
-6. Kernel times (CUDA events) beside their bound, the plain version's
-   time and one PyTorch call's where one computes the same function,
-   printed as one ``{"kernels": [...]}`` line.
+6. Kernel times (CUDA events and profiler device time) beside their
+   bound, the plain version's time and one PyTorch call's where one
+   computes the same function, printed as one ``{"kernels": [...]}`` line
+   (nine rows: every kernel of the port).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -86,7 +104,7 @@ F32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
 
 SOURCES = ("paged_attention.cu", "bitplane.cu", "bitplane_matmul.cu", "ssd.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "exp_delta.cu")
 
 B, S, HKV, REP, HD, BITS = 8, 1024, 3, 3, 64, 16
 LADDER = [(4, 16), (4, 12), (-1, 8)]
@@ -220,6 +238,7 @@ def build_kernels() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.bitplane_matmul import kernel as MK
+    from repro_torch.kernels.exp_delta import kernel as EK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.ssd import kernel as SK
@@ -237,47 +256,62 @@ def build_kernels() -> None:
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
-    for mod in (K, BK, MK, SK, FK):
+    for mod in (K, BK, MK, SK, FK, EK):
         mod._library()
     log(f"phase 1: {len(SOURCES)} libraries built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
-# A torch.profiler window on the card can lose the first few kernel
-# records it should hold (4 to 6 of them in chip_smoke's runs on the H100,
-# whether or not host activity is traced too), so every window opens with
-# PROFILER_PAD short sleep kernels that its rows leave out, and phase 6
-# logs how many of them were lost.  A window in which no pad kernel
-# survived may have lost real records, and one that holds fewer launches
-# of a kernel than were made did: either is logged and kept in
+# A torch.profiler window on the card loses the device records of its
+# first few kernel launches, and now and then of its first few hundred
+# (matched launch by launch, as below; the cause lies inside the profiler
+# and is not known).  So every window opens with PROFILER_PAD short sleep
+# kernels, which its rows leave out, and is complete when every launch
+# after them has its device record and it holds as many launches of each
+# expected kernel as were made.  WINDOW_LOSSES keeps how many records each
+# window lost; an incomplete window is logged and kept in
 # INCOMPLETE_WINDOWS, and phase 6 fails on any.
-PROFILER_PAD = 32
+PROFILER_PAD = 4096
 INCOMPLETE_WINDOWS: list = []
-PAD_LOST: list = []
+WINDOW_LOSSES: list = []
 
 
-def device_rows(run, what: str) -> list:
+def device_rows(run, what: str, expect: dict | None = None) -> list:
     """The device rows (``key_averages``) of a torch.profiler window, host
     and device activity traced, around ``run()`` and a synchronise, with
-    the pad kernels left out."""
+    the pad kernels left out.  Each kernel launch the host traced is matched
+    to its device record by correlation id; a lost record is allowed only
+    among the pads.  ``expect`` maps a kernel-name fragment to the launches
+    the window must hold."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILER_PAD):
             torch.cuda._sleep(1)
         run()
         torch.cuda.synchronize()
+    events = prof.events()
+    launches = sorted((e for e in events if e.device_type == cpu and "LaunchKernel" in e.name),
+                      key=lambda e: e.time_range.start)
+    recorded = {e.id for e in events if e.device_type == cuda}
+    lost = [i for i, e in enumerate(launches) if e.id not in recorded]
+    WINDOW_LOSSES.append(len(lost))
     rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    pad = sum(e.count for e in rows if "spin_kernel" in e.key)
-    PAD_LOST.append(PROFILER_PAD - pad)
-    if pad == 0:
-        INCOMPLETE_WINDOWS.append((what, "no pad kernel recorded"))
-        log(f"profiler: the window over {what} recorded none of its pad kernels; "
-            f"its first rows: {[e.key[:40] for e in rows[:3]]}")
-    return [e for e in rows if "spin_kernel" not in e.key]
+            if e.device_type == cuda and "spin_kernel" not in e.key]
+    got = {m: sum(e.count for e in rows if m in e.key) for m in expect or {}}
+    fault = None
+    if len(launches) <= PROFILER_PAD or (lost and lost[-1] >= PROFILER_PAD):
+        fault = (f"{len(launches)} launches traced, {len(lost)} records lost, the last "
+                 f"at launch {lost[-1] if lost else None} (the pads are 0 to {PROFILER_PAD - 1})")
+    elif got != (expect or {}):
+        fault = f"launches recorded {got}, made {expect}"
+    if fault:
+        INCOMPLETE_WINDOWS.append((what, fault))
+        log(f"profiler: the window over {what} is incomplete ({fault})")
+    return rows
 
 
 def device_ms(fn, match: str = "", iters: int = 50) -> float:
@@ -294,11 +328,9 @@ def device_ms(fn, match: str = "", iters: int = 50) -> float:
         for i in range(iters):
             fn(i)
 
-    rows = [e for e in device_rows(run, match or "a plain call") if match in e.key]
-    n = sum(e.count for e in rows)
-    if match and n != iters:
-        INCOMPLETE_WINDOWS.append((match, f"{n} of {iters} launches recorded"))
-        log(f"profiler: the window recorded {n} of {iters} launches of {match}")
+    rows = [e for e in device_rows(run, match or "a plain call",
+                                   {match: iters} if match else None)
+            if match in e.key]
     return sum(e.self_device_time_total for e in rows) / iters / 1e3
 
 
@@ -495,6 +527,75 @@ def check_flash_kernel(torch, dev) -> tuple:
     return first
 
 
+# Exponent-delta cases (rows, G, bits): a 512-token serving span (4 stored
+# layers x 2 streams x 32 pages, 192 channels each; its inputs are timed in
+# phase 6), a decode page fill (8 pages), the quickstart's KV (32 groups of
+# 256 channels), fp8_e4m3 in uint8, a ragged row count, the reference's
+# shorter groups, a group the kernel takes at run time, and fp32
+EXP_DELTA_SPAN_ROWS = 256 * 192
+EXP_DELTA_CASES = (
+    (EXP_DELTA_SPAN_ROWS, 16, 16), (8 * 192, 16, 16), (32 * 256, 16, 16),
+    (EXP_DELTA_SPAN_ROWS, 16, 8), (7 * 24, 16, 16), (300, 8, 16), (64, 4, 8),
+    (100, 12, 16), (96, 16, 32),
+)
+EXP_DELTA_FIELDS = {16: (7, 0xFF), 8: (3, 0xF), 32: (23, 0xFF)}
+
+
+def check_exp_delta_kernels(torch, dev) -> tuple:
+    """Encode and decode bit for bit against their plain versions on the
+    same CUDA inputs at EXP_DELTA_CASES (random bits; the span also as bf16
+    KV with spread exponents), the round trip, and decode of top-k plane
+    truncations of the span's encoded values (through the pack and unpack
+    kernels).  Returns the largest |kernel - plain| (as int64) of encode
+    (values and bases) and of decode over every case, which must be 0, and
+    the span's bf16 KV bits (timed in phase 6)."""
+    from repro_torch.kernels.bitplane import kernel as BK
+    from repro_torch.kernels.exp_delta import kernel as EK
+    from repro_torch.kernels.exp_delta import ref as ER
+
+    def err(got, want) -> int:
+        return int((got.long() - want.long()).abs().max())
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    span = (torch.randn((EXP_DELTA_SPAN_ROWS, 16), generator=gen, device=dev)
+            * torch.exp(2 * torch.randn((EXP_DELTA_SPAN_ROWS, 1), generator=gen,
+                                        device=dev)))
+    span = span.to(torch.bfloat16).view(torch.int16)
+    cases = [(span, 16)]
+    for rows, g, bits in EXP_DELTA_CASES:
+        u = torch.randint(0, 1 << bits, (rows, g), generator=gen, device=dev,
+                          dtype=torch.int64)
+        cases.append((ER._narrow(u, BK.CONTAINERS[bits // 8]), bits))
+    errs = {"exp_delta_encode": 0, "exp_delta_decode": 0}
+    for u, bits in cases:
+        man, mask = EXP_DELTA_FIELDS[bits]
+        enc, base = EK.encode(u, man, mask)
+        enc_r, base_r = ER.encode_ref(u, man, mask)
+        back = EK.decode(enc, base, man, mask)
+        e_enc = max(err(enc, enc_r), err(base, base_r))
+        e_dec = err(back, ER.decode_ref(enc, base, man, mask))
+        errs["exp_delta_encode"] = max(errs["exp_delta_encode"], e_enc)
+        errs["exp_delta_decode"] = max(errs["exp_delta_decode"], e_dec)
+        if e_enc or e_dec:
+            raise AssertionError(f"exp_delta differs from plain at {tuple(u.shape)}, {bits} "
+                                 f"bits: encode by {e_enc}, decode by {e_dec}")
+        if not torch.equal(back, u):
+            raise AssertionError(f"exp_delta decode(encode(u)) != u at {tuple(u.shape)}")
+    man, mask = EXP_DELTA_FIELDS[16]
+    enc, base = EK.encode(span, man, mask)
+    planes = BK.pack(enc.reshape(-1), 16)
+    for keep in (12, 8, 4):
+        trunc = BK.unpack(planes[:keep].contiguous(), 16, keep, torch.int16).reshape(enc.shape)
+        e_dec = err(EK.decode(trunc, base, man, mask), ER.decode_ref(trunc, base, man, mask))
+        errs["exp_delta_decode"] = max(errs["exp_delta_decode"], e_dec)
+        if e_dec:
+            raise AssertionError(f"exp_delta_decode differs from plain by {e_dec} at keep {keep}")
+    log(f"phase 2: exp_delta encode/decode match plain bit for bit (max |kernel - plain| "
+        f"{errs}) at {[tuple(u.shape) + (b,) for u, b in cases]} (rows, G, bits) and at "
+        f"keep 12, 8, 4")
+    return errs, span
+
+
 def make_requests(n: int = 16):
     import numpy as np
 
@@ -517,6 +618,7 @@ def engine_config(kernel: str):
 def serve(torch, model, params, kernel: str) -> tuple:
     """One main-path run: launch counts reset just before, read just after."""
     from repro_torch.kernels.bitplane import kernel as BK
+    from repro_torch.kernels.exp_delta import kernel as EK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.serving import ContinuousScheduler
@@ -526,13 +628,15 @@ def serve(torch, model, params, kernel: str) -> tuple:
     K.reset_launches()
     BK.reset_launches()
     FK.reset_launches()
+    EK.reset_launches()
     t0 = time.perf_counter()
     for r in reqs:
         sched.submit(r)
     sched.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**K.LAUNCHES, **BK.LAUNCHES, **FK.LAUNCHES}
+    launches = {**K.LAUNCHES, **BK.LAUNCHES, **FK.LAUNCHES, **EK.LAUNCHES}
+    encodes = sched.backend.page_encodes
     rep = sched.report()
     if not all(r.done and not r.truncated and len(r.output) == r.max_new_tokens
                for r in reqs):
@@ -549,6 +653,12 @@ def serve(torch, model, params, kernel: str) -> tuple:
     if launches["bitplane_pack"] <= 0 or launches["bitplane_unpack"] <= 0:
         raise AssertionError(f"{kernel}: the KV planes did not go through the "
                              f"pack and unpack kernels: {launches}")
+    if not launches["exp_delta_encode"] == sum(encodes.values()) > 0:
+        raise AssertionError(f"{kernel}: exp_delta_encode launches "
+                             f"{launches['exp_delta_encode']} != the backend's page "
+                             f"transforms {encodes}")
+    if launches["exp_delta_decode"] != 0:
+        raise AssertionError(f"{kernel}: serving decoded stored pages: {launches}")
     if launches["flash_attention"] != n_layers * rep["prefill_chunks"]:
         raise AssertionError(f"{kernel}: flash launches {launches['flash_attention']} != "
                              f"{n_layers} x {rep['prefill_chunks']} prefill chunks")
@@ -559,7 +669,8 @@ def serve(torch, model, params, kernel: str) -> tuple:
     if not rep["device_bytes_read"] < rep["kv_fetch_logical"]:
         raise AssertionError("the ladder did not cut device reads below full precision")
     log(f"phase 3 [{kernel}]: {len(reqs)} requests, {steps} decode steps, "
-        f"{rep['prefill_chunks']} prefill chunks, launches {launches}, decode {rep['decode_tokens']} tok in "
+        f"{rep['prefill_chunks']} prefill chunks, launches {launches}, page transforms "
+        f"{encodes}, decode {rep['decode_tokens']} tok in "
         f"{rep['decode_s']:.3f} s = {rep['decode_tok_per_s']:.1f} tok/s, "
         f"prefill {rep['prefill_tokens']} tok in {rep['prefill_s']:.3f} s, "
         f"wall {wall:.2f} s, "
@@ -611,6 +722,7 @@ def profile_decode(torch, model, params, n: int = 8) -> dict:
     kernels) from a torch.profiler window of as many steps.  Eight slots
     decode throughout; no request retires inside either window."""
     from repro_torch.kernels.bitplane import kernel as BK
+    from repro_torch.kernels.exp_delta import kernel as EK
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.serving import ContinuousScheduler
 
@@ -622,12 +734,15 @@ def profile_decode(torch, model, params, n: int = 8) -> dict:
     torch.cuda.synchronize()
     K.reset_launches()
     BK.reset_launches()
+    EK.reset_launches()
     t0 = time.perf_counter()
     for _ in range(n):
         sched.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / n * 1e3
-    per_step = {k: v / n for k, v in {**K.LAUNCHES, **BK.LAUNCHES}.items()}
+    per_step = {k: v / n for k, v in {**K.LAUNCHES, **BK.LAUNCHES, **EK.LAUNCHES}.items()}
+    # page fills that land in the window add an unpack, an encode and a
+    # pack each, so these vary with the window
     log(f"phase 3 launches per steady decode step: {per_step}")
 
     def steps():
@@ -693,6 +808,101 @@ def teacher_forced(torch, model, params, cache, tok, keeps) -> None:
         raise AssertionError("teacher-forced logits disagree across fused/rung/plain")
 
 
+def memory_tier_round_trip(torch, cache, n_layers: int = 4, min_pages: int = 512) -> dict:
+    """Phase 3c: the snapshot's device KV (valid rows of the first slots
+    that hold at least ``min_pages`` pages over ``n_layers`` stored layers
+    and both streams) through ``put_sequence`` into a card store and into
+    a CPU store fed the same bits, then ``get_sequence`` back at several
+    keeps.  Blobs, controller totals and reads must agree; the launches
+    are one encode and one pack per put, one unpack and one decode per
+    get."""
+    from repro_torch.core.compressed_store import StoreConfig
+    from repro_torch.kernels.bitplane import kernel as BK
+    from repro_torch.kernels.exp_delta import kernel as EK
+    from repro_torch.kernels.paged_attention.ops import unpack_kv
+    from repro_torch.serving.kv_cache import PAGE_TOKENS, CompressedKVStore
+
+    dev = cache["planes"].device
+    lens = [int(n) for n in cache["len"].tolist()]
+    seqs, pages = {}, 0
+    for slot, n in enumerate(lens):
+        if pages >= min_pages:
+            break
+        for name, stream in (("k_planes", "k"), ("v_planes", "v")):
+            pl = cache[name][:n_layers, :, slot, :n].movedim(1, 0)
+            bits = unpack_kv(pl, BITS, BITS).view(torch.int16).reshape(n_layers, n, -1)
+            for li in range(n_layers):
+                seqs[(slot, li, stream)] = bits[li].contiguous()
+        pages += 2 * n_layers * -(-n // PAGE_TOKENS)
+    if pages < min_pages:
+        raise AssertionError(f"the snapshot holds {pages} pages, fewer than {min_pages}")
+    host_kv = {key: kv.cpu() for key, kv in seqs.items()}
+    card = CompressedKVStore(config=StoreConfig(codec="lz4"))
+    cpu = CompressedKVStore(config=StoreConfig(codec="lz4"))
+    torch.cuda.synchronize()
+    BK.reset_launches()
+    EK.reset_launches()
+    t0 = time.perf_counter()
+    for (slot, li, stream), kv in seqs.items():
+        card.put_sequence(slot, li, stream, kv)
+    torch.cuda.synchronize()
+    card_put = time.perf_counter() - t0
+    put_launches = {**BK.LAUNCHES, **EK.LAUNCHES}
+    t0 = time.perf_counter()
+    for (slot, li, stream), kv in host_kv.items():
+        cpu.put_sequence(slot, li, stream, kv)
+    cpu_put = time.perf_counter() - t0
+    n = len(seqs)
+    if not (put_launches["exp_delta_encode"] == put_launches["bitplane_pack"] == n
+            and put_launches["bitplane_unpack"] == put_launches["exp_delta_decode"] == 0):
+        raise AssertionError(f"{n} put_sequence calls launched {put_launches}")
+    for key, ct in cpu.controller._kv_pages.items():
+        got = card.controller._kv_pages[key]
+        if (got.segments, got.base_blob, got.valid_values) != \
+                (ct.segments, ct.base_blob, ct.valid_values):
+            raise AssertionError(f"page {key}: the card store's blobs differ from the CPU's")
+    if not len(card.controller._kv_pages) == len(cpu.controller._kv_pages) == pages:
+        raise AssertionError("the stores hold different pages")
+    stored = card.footprint()["stored_bytes"]
+    BK.reset_launches()
+    EK.reset_launches()
+    ladder = cache["planes"].cpu().tolist()
+    t0 = time.perf_counter()
+    for (slot, li, stream), kv in seqs.items():
+        t = kv.shape[0]
+        n_pages = -(-t // PAGE_TOKENS)
+        for keep in (BITS, 12, 8, 4, "ladder"):
+            keeps = {p: int(ladder[slot][p]) if keep == "ladder" else keep
+                     for p in range(n_pages)}
+            got = card.get_sequence(slot, li, stream, t, keeps, device=dev)
+            want = torch.from_numpy(cpu.get_sequence(slot, li, stream, t, keeps).view("int16"))
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"{(slot, li, stream)}: the card read at keep {keep} "
+                                     f"differs from the CPU store's")
+            if keep == BITS and not torch.equal(got, kv):
+                raise AssertionError(f"{(slot, li, stream)}: keep 16 does not read back "
+                                     f"the device KV bit for bit")
+    torch.cuda.synchronize()
+    gets = time.perf_counter() - t0
+    get_launches = {**BK.LAUNCHES, **EK.LAUNCHES}
+    if not (get_launches["bitplane_unpack"] == get_launches["exp_delta_decode"] == 5 * n
+            and get_launches["bitplane_pack"] == get_launches["exp_delta_encode"] == 0):
+        raise AssertionError(f"{5 * n} get_sequence calls on the card launched {get_launches}")
+    totals = card.controller.stats.totals
+    if totals != cpu.controller.stats.totals:
+        raise AssertionError(f"controller totals differ: {totals} vs "
+                             f"{cpu.controller.stats.totals}")
+    log(f"phase 3c: {n} sequences of slots {sorted({k[0] for k in seqs})}, {pages} pages "
+        f"({pages * PAGE_TOKENS * 192 * 2} padded logical bytes) stored in {stored} B; put "
+        f"{card_put / pages * 1e3:.3f} ms/page host (card store), {cpu_put / pages * 1e3:.3f} "
+        f"ms/page (CPU store); {5 * n} reads from each store in {gets:.2f} s; launches of "
+        f"the puts {put_launches}, of the card's gets {get_launches}; equal controller "
+        f"totals {totals}")
+    return {"decode_launches": get_launches["exp_delta_decode"],
+            "encode_launches": put_launches["exp_delta_encode"], "pages": pages,
+            "sequences": n, "gets": 5 * n}
+
+
 def run_quickstart(torch) -> dict:
     """The quickstart entry point on the card, launch counts reset just
     before and read just after; then on the CPU (plain versions) for the
@@ -700,19 +910,23 @@ def run_quickstart(torch) -> dict:
     from repro_torch import quickstart
     from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.bitplane_matmul import kernel as MK
+    from repro_torch.kernels.exp_delta import kernel as EK
 
     BK.reset_launches()
     MK.reset_launches()
+    EK.reset_launches()
     t0 = time.perf_counter()
     gpu = quickstart.run("cuda")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {**BK.LAUNCHES, **MK.LAUNCHES}
+    launches = {**BK.LAUNCHES, **MK.LAUNCHES, **EK.LAUNCHES}
     for line in gpu["lines"]:
         log(f"phase 4 quickstart: {line}")
-    if launches["bitplane_matmul"] != 2 or launches["bitplane_pack"] != 1:
-        raise AssertionError(f"quickstart launches {launches}: expected one weight "
-                             f"pack and two bit-plane matmuls")
+    if (launches["bitplane_matmul"] != 2 or launches["bitplane_pack"] != 2
+            or launches["exp_delta_encode"] != 1):
+        raise AssertionError(f"quickstart launches {launches}: expected two packs (the "
+                             f"weight and the KV surrogate), one exponent-delta encode "
+                             f"and two bit-plane matmuls")
     cpu = quickstart.run("cpu")
 
     def strip(lines):
@@ -1034,15 +1248,14 @@ def run_zamba(torch, dev) -> dict:
         f"tokens {out[:, :6].tolist()}")
 
     prefill_rows = device_rows(lambda: prefill_step(params, {"tokens": prompts}),
-                               "a Zamba2 prefill")
+                               "a Zamba2 prefill",
+                               {"flash_attention_kernel": n_attn, "ssd_kernel": n_mamba})
     rows = [(e.self_device_time_total, e.key) for e in prefill_rows]
     busy_ms = sum(t for t, _ in rows) / 1e3
     flash_ms = sum(t for t, k in rows if "flash_attention_kernel" in k) / 1e3
     ssd_ms = sum(t for t, k in rows if "ssd_kernel" in k) / 1e3
     n_rec = {name: sum(e.count for e in prefill_rows if name in e.key)
              for name in ("flash_attention_kernel", "ssd_kernel")}
-    if n_rec != {"flash_attention_kernel": n_attn, "ssd_kernel": n_mamba}:
-        INCOMPLETE_WINDOWS.append(("a Zamba2 prefill", n_rec))
     if busy_ms <= 0 or flash_ms <= 0 or ssd_ms <= 0:
         raise AssertionError("the profiler recorded no device time for the prefill kernels")
     top = sorted(rows, reverse=True)[:6]
@@ -1364,6 +1577,54 @@ def time_bitplane_kernels(torch, dev, errs, serve_launches, per_step, prefill,
     ]
 
 
+def time_exp_delta_kernels(torch, span, errs, serve_launches, per_step, rt) -> list:
+    """Encode and decode at the 256-page serving span (49,152 rows of 16
+    bf16 values, phase 2's KV bits; 1.5 MB, in L2 as it is for the real
+    caller, which has just unpacked it), timed with CUDA events and with the
+    profiler's device time, beside the plain versions and the byte bound:
+    each input read once, each output written once, bases included; a few
+    integer operations per value, so bytes bound them."""
+    from repro_torch.kernels.exp_delta import kernel as EK
+    from repro_torch.kernels.exp_delta import ref as ER
+
+    man, mask = EXP_DELTA_FIELDS[16]
+    enc, base = EK.encode(span, man, mask)
+    encode = lambda i: EK.encode(span, man, mask)  # noqa: E731
+    encode_plain = lambda i: ER.encode_ref(span, man, mask)  # noqa: E731
+    decode = lambda i: EK.decode(enc, base, man, mask)  # noqa: E731
+    decode_plain = lambda i: ER.decode_ref(enc, base, man, mask)  # noqa: E731
+    e_ms, e_dev = cuda_time_ms(encode, iters=200), device_ms(encode, "exp_delta_encode_kernel")
+    e_plain, e_plain_dev = cuda_time_ms(encode_plain, iters=50), device_ms(encode_plain, "", 20)
+    d_ms, d_dev = cuda_time_ms(decode, iters=200), device_ms(decode, "exp_delta_decode_kernel")
+    d_plain, d_plain_dev = cuda_time_ms(decode_plain, iters=50), device_ms(decode_plain, "", 20)
+    nbytes = 2 * span.numel() * span.element_size() + base.numel()
+    b_ms, b_by = bound_ms(nbytes, 0, BF16_TENSOR_FLOPS)
+    log(f"phase 6 (ms per call, CUDA events / profiler device time): exp_delta_encode "
+        f"{e_ms:.4f} / {e_dev:.4f}, decode {d_ms:.4f} / {d_dev:.4f} at {tuple(span.shape)} "
+        f"bf16 (bound {b_ms:.6f} by {b_by}, {nbytes} B; plain encode {e_plain:.4f} / "
+        f"{e_plain_dev:.4f}, decode {d_plain:.4f} / {d_plain_dev:.4f})")
+    src = "src/repro_torch/csrc/exp_delta.cu"
+    common = {"route": "cuda", "source": src, "bound_ms": b_ms,
+              "bound_by": b_by, "bound_bytes": nbytes, "library_ms": None,
+              "library": "none"}
+    return [
+        {"name": "exp_delta_encode", **common,
+         "replaces": "src/repro/kernels/exp_delta/kernel.py:44",
+         "launches": serve_launches["exp_delta_encode"],
+         "max_abs_err": float(errs["exp_delta_encode"]),
+         "launches_per_decode_step": per_step["exp_delta_encode"],
+         "launches_per_put_sequence": rt["encode_launches"] / rt["sequences"],
+         "ms": e_ms, "device_ms": e_dev, "plain_ms": e_plain, "plain_device_ms": e_plain_dev},
+        {"name": "exp_delta_decode", **common,
+         "replaces": "src/repro/kernels/exp_delta/kernel.py:69",
+         "launches": rt["decode_launches"],
+         "max_abs_err": float(errs["exp_delta_decode"]),
+         "launches_per_get_sequence": rt["decode_launches"] / rt["gets"],
+         "launches_in_serving": serve_launches["exp_delta_decode"],
+         "ms": d_ms, "device_ms": d_dev, "plain_ms": d_plain, "plain_device_ms": d_plain_dev},
+    ]
+
+
 def ssd_work(bsz: int, l: int, h: int, p: int, n: int, q: int) -> tuple:
     """(bytes, causal operations, TPU-form operations) of one SSD launch:
     each input read once (xdt, da, b, c, h0) and each output written once
@@ -1509,6 +1770,8 @@ def main() -> int:
     errs.update(check_bitplane_kernels(torch, dev))
     errs["ssd"], ssd_inputs = check_ssd_kernel(torch, dev)
     errs["flash_attention"], flash_inputs = check_flash_kernel(torch, dev)
+    exp_delta_errs, exp_delta_span = check_exp_delta_kernels(torch, dev)
+    errs.update(exp_delta_errs)
     mark("2")
 
     cfg = get_config("smollm-135m")
@@ -1526,6 +1789,8 @@ def main() -> int:
     prefill = prefill_chunk_launches(torch, model, params, cache)
     teacher_forced(torch, model, params, cache, tok, keeps)
     mark("3")
+    round_trip = memory_tier_round_trip(torch, cache)
+    mark("3c")
     qs_launches = run_quickstart(torch)
     mark("4")
     del model, params
@@ -1544,6 +1809,8 @@ def main() -> int:
     kernels.append(time_ssd_kernel(torch, errs["ssd"], ssd_inputs, mamba, zamba))
     kernels.append(time_flash_kernel(torch, errs["flash_attention"], flash_inputs, zamba,
                                      prefill))
+    kernels += time_exp_delta_kernels(torch, exp_delta_span, errs, fused_launches,
+                                      per_step, round_trip)
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err"):
             if key == "library_ms" and k[key] is None and k.get("library") == "none":
@@ -1555,8 +1822,8 @@ def main() -> int:
                 raise AssertionError(f"{k['name']}: the profiler recorded no {key}")
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its main path")
-    log(f"profiler: {len(PAD_LOST)} windows lost {min(PAD_LOST)} to {max(PAD_LOST)} of "
-        f"their {PROFILER_PAD} pad kernels")
+    log(f"profiler: {len(WINDOW_LOSSES)} windows lost the device records of their first "
+        f"{WINDOW_LOSSES} launches (each opens with {PROFILER_PAD} pad kernels)")
     if INCOMPLETE_WINDOWS:
         raise AssertionError(f"profiler windows lost launches: {INCOMPLETE_WINDOWS}")
     mark("6")

@@ -6,10 +6,10 @@ column-store.  Plane 0 is the MOST significant bit (sign), plane n-1 the least
 significant mantissa bit, so "fetch the top-k planes" is ``planes[:k]`` —
 exactly the partial-plane dynamic-quantization fetch of Fig. 5.
 
-The NumPy half is the reference's, copied (the host-side compressed store
-runs on it).  The port imports no NumPy bf16 extension: bf16 values cross into
-NumPy as their ``uint16`` bit patterns (:func:`bf16_to_numpy`), and
-``from_uint_np`` hands bf16 back the same way.
+The NumPy half is the reference's, copied (the host-side weight store runs
+on it).  The port imports no NumPy bf16 extension: bf16 values cross into
+NumPy as their ``uint16`` bit patterns, and ``from_uint_np`` hands bf16 back
+the same way.
 """
 
 from __future__ import annotations
@@ -121,9 +121,3 @@ def reaggregate_np(planes: np.ndarray, bits: int, keep: int | None = None) -> np
 def from_uint(u: torch.Tensor) -> torch.Tensor:
     """Raw 16-bit patterns (any integer dtype) -> bf16 tensor."""
     return u.to(torch.int32).to(torch.int16).view(torch.bfloat16)
-
-
-def bf16_to_numpy(x: torch.Tensor) -> np.ndarray:
-    """bf16 tensor (any device) -> NumPy ``uint16`` array of its bit patterns
-    — how bf16 reaches the host-side store without a NumPy bf16 type."""
-    return x.contiguous().view(torch.int16).cpu().numpy().view(np.uint16)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.compression import default_codec, get_codec
 from repro_torch.core import kv_clustering
@@ -32,6 +33,7 @@ from repro_torch.core.bitplane import (
     reaggregate_np,
     to_uint_np,
 )
+from repro_torch.kernels.bitplane import ops as bitplane_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,59 +242,147 @@ def decompress_weights(
 # ---------------------------------------------------------------------------
 # KV path
 # ---------------------------------------------------------------------------
+#
+# The transform (cluster -> exponent delta -> bit-plane pack, and back) runs
+# on torch tensors, on the device the KV lies on: the hand-written kernels
+# on a CUDA device, their plain versions on the CPU.  Only the codec runs
+# on the host.  Raw bits travel in the bit-plane containers (uint8, int16,
+# int32), as NumPy's uint views (uint8, uint16, uint32) on the host.
+
+_HOST_VIEWS = {torch.uint8: np.uint8, torch.int16: np.uint16, torch.int32: np.uint32}
+_SIGNED_VIEWS = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
 
 
-def compress_kv(
-    kv: np.ndarray, spec: FloatSpec, cfg: StoreConfig = StoreConfig()
-) -> CompressedTensor:
-    """kv: (tokens, channels) in the spec's value dtype.
+def bits_tensor(kv, spec: FloatSpec) -> torch.Tensor:
+    """Raw bits of ``kv`` in the spec's container: a NumPy array (values or
+    their uint view) becomes a CPU tensor; a tensor keeps its device."""
+    container = bitplane_ops.container(spec)
+    if isinstance(kv, np.ndarray):
+        u = to_uint_np(kv, spec).reshape(kv.shape)
+        return torch.from_numpy(u.view(_SIGNED_VIEWS.get(u.dtype, u.dtype)))
+    return kv if kv.dtype == container else kv.view(container)
 
-    Tokens are padded to a full group by repeating the last token (padding is
-    dropped on decode; repetition keeps the pad from polluting delta stats).
-    """
+
+def _host_bits(u: torch.Tensor) -> np.ndarray:
+    """Raw-bit tensor (any device) -> NumPy uint view on the host."""
+    return u.cpu().numpy().view(_HOST_VIEWS[u.dtype])
+
+
+def _to_host(*tensors: torch.Tensor) -> list:
+    """uint8 tensors of one device -> NumPy arrays, in one device->host copy."""
+    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off : off + t.numel()].reshape(tuple(t.shape)))
+        off += t.numel()
+    return out
+
+
+def _to_device(device, *arrays: np.ndarray) -> list:
+    """uint8 NumPy arrays -> tensors on ``device``, in one host->device copy."""
+    flat = torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrays])).to(device)
+    out, off = [], 0
+    for a in arrays:
+        out.append(flat[off : off + a.size].reshape(a.shape))
+        off += a.size
+    return out
+
+
+def _group_bytes(channels: int, group: int) -> int:
+    """Bytes of one plane of one group: its channels * group values, padded
+    to whole octets (the reference pads each group's flat block to 8)."""
+    return -(-(channels * group) // 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncodedKV:
+    """A KV tensor after cluster -> exponent delta -> bit-plane pack: what
+    the store compresses.  ``planes[p]`` is plane p's stream across the
+    channel-major groups (eq. 5), group g at columns ``[g * gb, (g + 1) * gb)``
+    with ``gb = ceil(channels * group / 8)``; ``bases`` holds one exponent
+    base per channel per group.  Tensors on the device after
+    :func:`encode_kv`, NumPy after :meth:`to_host`."""
+
+    planes: object  # (bits, n_groups * gb) uint8
+    bases: object  # (n_groups, channels) uint8
+    shape: tuple  # (tokens, channels), the tail group's padding excluded
+    group: int
+
+    def to_host(self) -> "EncodedKV":
+        """Planes and bases in NumPy, in one device->host copy."""
+        planes, bases = _to_host(self.planes, self.bases)
+        return dataclasses.replace(self, planes=planes, bases=bases)
+
+    def split(self, n: int) -> list:
+        """``n`` equal parts along the groups (pages of a padding-free
+        encode), each an :class:`EncodedKV` of its own."""
+        n_groups, channels = self.bases.shape
+        tokens = self.shape[0]
+        if tokens != n_groups * self.group or n_groups % n:
+            raise ValueError(f"{n_groups} groups of {tokens} tokens do not split into {n}")
+        per = n_groups // n
+        cols = per * _group_bytes(channels, self.group)
+        return [EncodedKV(self.planes[:, i * cols : (i + 1) * cols],
+                          self.bases[i * per : (i + 1) * per],
+                          (tokens // n, channels), self.group)
+                for i in range(n)]
+
+
+def encode_kv(kv, spec: FloatSpec, cfg: StoreConfig = StoreConfig()) -> EncodedKV:
+    """The KV transform of the bit-plane, clustered layout, on the device
+    ``kv`` lies on (a NumPy input runs on the CPU).
+
+    ``kv``: raw bits or values, (tokens, channels) or (pages, page_tokens,
+    channels) with ``page_tokens`` a multiple of ``cfg.group``.  The tail
+    group of a 2-D input is padded by repeating the last token.  Cluster,
+    exponent delta over all groups at once, then one bit-plane pack: each
+    group's channels * group values are padded to whole octets, so group g
+    of plane p is columns ``[g * gb, (g + 1) * gb)`` of the one pack, byte
+    for byte the stream the reference concatenates group by group."""
+    if cfg.layout != "bitplane" or not cfg.kv_cluster:
+        raise ValueError("encode_kv is the transform of the bit-plane clustered "
+                         f"layout; this store has layout={cfg.layout!r}, "
+                         f"kv_cluster={cfg.kv_cluster}")
+    u = bits_tensor(kv, spec)
+    if u.dim() == 3:
+        if u.shape[1] % cfg.group:
+            raise ValueError(f"pages of {u.shape[1]} tokens are no whole groups of {cfg.group}")
+        u = u.reshape(-1, u.shape[-1])
+        t = u.shape[0]
+    else:
+        t = u.shape[0]
+        pad = (-t) % cfg.group
+        if pad:
+            u = torch.cat([u, u[-1:].expand(pad, u.shape[1])])
+    c = u.shape[1]
+    encoded, base = kv_clustering.cluster_and_encode(u, spec, cfg.group,
+                                                     mode=cfg.decorrelate)
+    flat = encoded.reshape(encoded.shape[0], c * cfg.group)
+    gb = _group_bytes(c, cfg.group)
+    if gb * 8 != c * cfg.group:
+        flat = torch.nn.functional.pad(flat, (0, gb * 8 - c * cfg.group))
+    planes = bitplane_ops.pack_raw(flat.reshape(-1), spec.bits)
+    return EncodedKV(planes, base, (t, c), cfg.group)
+
+
+def compress_encoded(encoded: EncodedKV, spec: FloatSpec,
+                     cfg: StoreConfig = StoreConfig()) -> CompressedTensor:
+    """Host-only: the codec over an encoded KV tensor's plane streams, in
+    ``block_bytes`` chunks, and over its bases.  Takes NumPy planes and
+    bases (:meth:`EncodedKV.to_host`)."""
+    if encoded.group != cfg.group:
+        raise ValueError(f"encoded in groups of {encoded.group}, the store groups {cfg.group}")
     codec = get_codec(cfg.codec)
-    t, c = kv.shape
-    u2d = to_uint_np(kv, spec).reshape(t, c)
-    pad = (-t) % cfg.group
-    if pad:
-        u2d = np.concatenate([u2d, np.repeat(u2d[-1:], pad, axis=0)])
-    if cfg.layout == "raw":
-        raw = u2d[:t].tobytes()
-        segments = [
-            [codec.compress(raw[off : off + cfg.block_bytes])]  # repro-lint: disable=accounting-taint
-            for off in range(0, len(raw), cfg.block_bytes)
-        ]
-        return CompressedTensor(
-            shape=(t, c), spec_name=spec.name, config=cfg, kind="kv",
-            n_values=t * c, segments=segments,
-        )
-    if not cfg.kv_cluster:
-        # Fig. 7 baseline: bit-plane the token-major layout, weight-style.
-        ct = compress_weights(kv, spec, cfg)
-        return dataclasses.replace(ct, shape=(t, c), kind="kv")
-    encoded, base = kv_clustering.cluster_and_encode_np(
-        u2d, spec, cfg.group, mode=cfg.decorrelate
-    )  # (G, C, group), (G, C)
-    # Eq. 5: concatenate each bit-plane ACROSS channel-major groups into one
-    # stream, then compress in block_bytes chunks (the paper's 4 KB blocks).
-    # Per-group blobs would be tiny for small-channel models and codec
-    # overhead would dominate.
-    n_groups = encoded.shape[0]
-    # Disaggregate per group, then concat plane streams across groups.
-    plane_streams = [[] for _ in range(spec.bits)]
-    for g in range(n_groups):
-        seg = _pad_to(encoded[g].reshape(-1), 8)
-        planes = disaggregate_np(seg, spec.bits)
-        for p in range(spec.bits):
-            plane_streams[p].append(planes[p].tobytes())
+    planes, base = encoded.planes, encoded.bases
     segments = []
     for p in range(spec.bits):
-        stream = b"".join(plane_streams[p])
+        stream = planes[p].tobytes()
         segments.append([
             codec.compress(stream[off : off + cfg.block_bytes])  # repro-lint: disable=accounting-taint
             for off in range(0, len(stream), cfg.block_bytes)
         ])
     base_blob = codec.compress(base.tobytes())  # repro-lint: disable=accounting-taint
+    t, c = encoded.shape
     return CompressedTensor(
         shape=(t, c),
         spec_name=spec.name,
@@ -306,7 +396,111 @@ def compress_kv(
     )
 
 
-def decompress_kv(ct: CompressedTensor, keep_planes: int | None = None) -> np.ndarray:
+def compress_kv(kv, spec: FloatSpec, cfg: StoreConfig = StoreConfig()) -> CompressedTensor:
+    """kv: (tokens, channels), a NumPy array in the spec's value dtype (bf16
+    as its uint16 bit patterns) or a tensor of raw bits or values.
+
+    Tokens are padded to a full group by repeating the last token (padding is
+    dropped on decode; repetition keeps the pad from polluting delta stats).
+    The bit-plane clustered layout transforms on the tensor's device (a
+    NumPy input on the CPU) and copies the planes to the host once for the
+    codec.  The raw layout and the ``kv_cluster=False`` baseline run on the
+    host (a tensor input is copied there first).
+    """
+    if cfg.layout == "bitplane" and cfg.kv_cluster:
+        return compress_encoded(encode_kv(kv, spec, cfg).to_host(), spec, cfg)
+    if isinstance(kv, torch.Tensor):
+        kv = _host_bits(bits_tensor(kv, spec))
+    codec = get_codec(cfg.codec)
+    t, c = kv.shape
+    if cfg.layout == "raw":
+        raw = to_uint_np(kv, spec).tobytes()
+        segments = [
+            [codec.compress(raw[off : off + cfg.block_bytes])]  # repro-lint: disable=accounting-taint
+            for off in range(0, len(raw), cfg.block_bytes)
+        ]
+        return CompressedTensor(
+            shape=(t, c), spec_name=spec.name, config=cfg, kind="kv",
+            n_values=t * c, segments=segments,
+        )
+    # Fig. 7 baseline: bit-plane the token-major layout, weight-style.
+    ct = compress_weights(kv, spec, cfg)
+    return dataclasses.replace(ct, shape=(t, c), kind="kv")
+
+
+def encode_pages(pages: torch.Tensor, spec: FloatSpec, cfg: StoreConfig) -> list:
+    """(n, page_tokens, channels) raw bits (tail pages already padded) ->
+    one page object per page for the store's ``put_page``: an
+    :class:`EncodedKV` on the host for the bit-plane clustered layout (one
+    :func:`encode_kv` over all pages, one device->host copy), the page's
+    raw bits in NumPy for the host layouts."""
+    if cfg.layout == "bitplane" and cfg.kv_cluster:
+        return encode_kv(pages, spec, cfg).to_host().split(pages.shape[0])
+    return list(_host_bits(pages))
+
+
+def _decompress_planes(codec, ct: CompressedTensor, keep: int) -> tuple:
+    """Host: planes (bits, stream bytes) with planes [keep, bits) zero, and
+    bases (n_groups, channels), of one clustered KV tensor."""
+    n_groups, c = ct.base_shape
+    base = np.frombuffer(codec.decompress(ct.base_blob), np.uint8).reshape(ct.base_shape)  # repro-lint: disable=accounting-taint
+    stream_len = n_groups * _group_bytes(c, ct.config.group)
+    planes = np.zeros((ct.spec.bits, stream_len), np.uint8)
+    for p in range(keep):
+        stream = b"".join(codec.decompress(b) for b in ct.segments[p])  # repro-lint: disable=accounting-taint
+        planes[p] = np.frombuffer(stream, np.uint8)[:stream_len]
+    return planes, base
+
+
+def decompress_kv_pages(cts: list, keeps: list, device=None) -> list:
+    """Decode clustered KV tensors of one channel count together: each
+    tensor's kept plane streams are decompressed on the host, its other
+    planes zero-filled (so each may keep its own planes), then one
+    host->device copy, one bit-plane unpack and one exponent-delta decode
+    over all of them.  ``device=None`` decodes on the CPU and returns NumPy
+    arrays (:func:`decompress_kv`'s types); otherwise raw-bit tensors in the
+    spec's container on ``device``.  The raw and unclustered layouts decode
+    one by one on the host."""
+    if not all(ct.config.layout == "bitplane" and ct.config.kv_cluster for ct in cts):
+        out = [_decompress_kv_host(ct, keep) for ct, keep in zip(cts, keeps)]
+        return out if device is None else [
+            bits_tensor(np.ascontiguousarray(a), ct.spec).to(device)
+            for a, ct in zip(out, cts)]
+    ct0 = cts[0]
+    spec, cfg = ct0.spec, ct0.config
+    codec = get_codec(cfg.codec)
+    keeps = [spec.bits if k is None else k for k in keeps]
+    host = [_decompress_planes(codec, ct, k) for ct, k in zip(cts, keeps)]
+    planes = np.concatenate([p for p, _ in host], axis=1)
+    bases = np.concatenate([b for _, b in host])
+    planes, bases = _to_device(torch.device("cpu") if device is None else device,
+                               planes, bases)
+    n_groups, c = bases.shape
+    gb = _group_bytes(c, cfg.group)
+    u = bitplane_ops.unpack_raw(planes, spec.bits, max(keeps),
+                                 bitplane_ops.container(spec))
+    encoded = u.reshape(n_groups, gb * 8)[:, : c * cfg.group].reshape(n_groups, c, cfg.group)
+    rows = kv_clustering.decode_and_uncluster(encoded, bases, spec, mode=cfg.decorrelate)
+    out, off = [], 0
+    for ct in cts:
+        t = ct.shape[0]
+        part = rows[off : off + t]
+        off += ct.base_shape[0] * cfg.group
+        out.append(part.contiguous() if device is not None
+                   else from_uint_np(_host_bits(part).reshape(-1), spec, (t, c)))
+    return out
+
+
+def decompress_kv(ct: CompressedTensor, keep_planes: int | None = None,
+                  device=None):
+    """One KV tensor at the top ``keep_planes`` planes: NumPy in the spec's
+    value dtype (bf16 as uint16) with ``device=None``, decoded on the CPU;
+    otherwise raw bits on ``device`` (see :func:`decompress_kv_pages`)."""
+    return decompress_kv_pages([ct], [keep_planes], device)[0]
+
+
+def _decompress_kv_host(ct: CompressedTensor, keep_planes: int | None) -> np.ndarray:
+    """The raw layout and the unclustered baseline, on the host."""
     codec = get_codec(ct.config.codec)
     spec = ct.spec
     t, c = ct.shape
@@ -314,35 +508,8 @@ def decompress_kv(ct: CompressedTensor, keep_planes: int | None = None) -> np.nd
         raw = b"".join(codec.decompress(seg[0]) for seg in ct.segments)  # repro-lint: disable=accounting-taint
         u = np.frombuffer(raw, spec.uint_np)[: t * c]
         return from_uint_np(u, spec, (t, c))
-    if not ct.config.kv_cluster:
-        wt = dataclasses.replace(ct, kind="weights")
-        return decompress_weights(wt, keep_planes).reshape(t, c)
-    group = ct.config.group
-    base = np.frombuffer(codec.decompress(ct.base_blob), np.uint8).reshape(ct.base_shape)  # repro-lint: disable=accounting-taint
-    n_groups = ct.base_shape[0]
-    keep = spec.bits if keep_planes is None else keep_planes
-    vals_per_group = c * group
-    padded_vpg = -(-vals_per_group // 8) * 8
-    stream_len = n_groups * padded_vpg // 8  # bytes per full plane stream
-    plane_rows = []
-    for p in range(keep):
-        stream = b"".join(codec.decompress(b) for b in ct.segments[p])  # repro-lint: disable=accounting-taint
-        plane_rows.append(np.frombuffer(stream, np.uint8)[:stream_len])
-    planes = np.stack(plane_rows)
-    if keep < spec.bits:
-        planes = np.concatenate(
-            [planes, np.zeros((spec.bits - keep, stream_len), np.uint8)]
-        )
-    # un-concatenate per group, reaggregate each
-    encoded = np.zeros((n_groups, c, group), spec.uint_np)
-    pbytes = padded_vpg // 8
-    for g in range(n_groups):
-        u = reaggregate_np(planes[:, g * pbytes : (g + 1) * pbytes], spec.bits, keep)
-        encoded[g] = u[:vals_per_group].reshape(c, group)
-    u2d = kv_clustering.decode_and_uncluster_np(
-        encoded, base, spec, mode=ct.config.decorrelate
-    )
-    return from_uint_np(u2d[:t].reshape(-1), spec, (t, c))
+    wt = dataclasses.replace(ct, kind="weights")
+    return decompress_weights(wt, keep_planes).reshape(t, c)
 
 
 # ---------------------------------------------------------------------------

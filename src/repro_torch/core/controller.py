@@ -24,10 +24,12 @@ import numpy as np
 from repro_torch.core.bitplane import FloatSpec
 from repro_torch.core.compressed_store import (
     CompressedTensor,
+    EncodedKV,
     StoreConfig,
+    compress_encoded,
     compress_kv,
     compress_weights,
-    decompress_kv,
+    decompress_kv_pages,
     decompress_weights,
 )
 
@@ -182,16 +184,19 @@ class MemoryController:
 
     # ------------------------------------------------------------------- KV
     def write_kv_page(
-        self, key: tuple, kv: np.ndarray, spec: FloatSpec,
+        self, key: tuple, kv, spec: FloatSpec,
         valid_values: int | None = None,
     ) -> CompressedTensor:
-        """key: (layer, head_group, page_index); kv: (tokens, channels).
+        """key: (layer, head_group, page_index); kv: (tokens, channels), a
+        NumPy array or a tensor (transformed on its device), or an
+        :class:`EncodedKV` already transformed (its planes on the host).
 
         ``valid_values`` marks how many leading elements of ``kv`` are real
         data when a tail page arrives physically padded to the page size —
         the event's logical bytes (and every later read of this page) are
         quoted pad-free, so padding never inflates the savings ratios."""
-        ct = compress_kv(kv, spec, self.config)
+        ct = (compress_encoded(kv, spec, self.config) if isinstance(kv, EncodedKV)
+              else compress_kv(kv, spec, self.config))
         ct.valid_values = valid_values
         self._kv_pages[key] = ct
         self._log(
@@ -211,15 +216,18 @@ class MemoryController:
                               fetched, planes, device_bytes=device))
         return ct, fetched
 
-    def read_kv_page(self, key: tuple, planes: int | None = None) -> np.ndarray:
+    def read_kv_page(self, key: tuple, planes: int | None = None, device=None):
+        """Decompress one page: NumPy with ``device=None``, else raw bits on
+        ``device`` (see ``compressed_store.decompress_kv_pages``)."""
         ct, _ = self._log_kv_read(key, planes)
-        return decompress_kv(ct, planes)
+        return decompress_kv_pages([ct], [planes], device)[0]
 
     def account_kv_read(self, key: tuple, planes: int | None = None) -> int:
         """Log a KV page read without decompressing (bandwidth modeling for
         reads whose *values* are already resident in the device working set —
-        the serving scheduler's steady-state decode fetches).  Returns the
-        physical bytes the bus would move."""
+        the serving scheduler's steady-state decode fetches; and the store's
+        ``get_sequence``, which charges page by page, then decodes the pages
+        together).  Returns the physical bytes the bus would move."""
         return self._log_kv_read(key, planes)[1]
 
     def has_kv_page(self, key: tuple) -> bool:

@@ -1,112 +1,108 @@
 """Cross-token KV cache clustering and de-correlation (paper §III.B).
 
-The NumPy functions the compressed store calls, copied from the reference
-(``cluster_and_encode_np`` / ``decode_and_uncluster_np`` and their helpers).
-Each step is lossless and invertible:
+The tensor counterparts of the reference's jnp functions, on raw bits in
+the bit-plane containers (``uint8``, ``int16``, ``int32``), on whatever
+device the input lies on.  Each step is lossless and invertible:
 
 1. **Channel-wise grouping across tokens** (Fig. 6 ①): within a group of
    ``group`` tokens the KV tensor is transposed from token-major
    ``(group, channels)`` to channel-major ``(channels, group)``.
 2. **Exponent delta transform** (Fig. 6 ③, eq. 6-7): per channel, the group
-   minimum exponent is subtracted from every token's exponent.
+   minimum exponent is subtracted from every token's exponent — the
+   exponent-delta kernel on a CUDA tensor, its plain version on the CPU.
+   The paper's alternative, XOR with the previous token, and grouping alone
+   are plain tensor ops (the reference has no kernel for them).
 3. **Bit-plane disaggregation** is then applied by the block store.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import torch
 
 from repro_torch.core.bitplane import FloatSpec
+from repro_torch.kernels.exp_delta import ops as exp_delta_ops
 
 DEFAULT_GROUP = 16  # tokens per group == paper's page size
 
 
-def cluster_np(kv: np.ndarray, group: int = DEFAULT_GROUP) -> np.ndarray:
+def cluster(kv: torch.Tensor, group: int = DEFAULT_GROUP) -> torch.Tensor:
     """(tokens, channels) -> (n_groups, channels, group), channel-major.
 
     ``tokens`` must be a multiple of ``group`` (callers pad the tail group).
     """
     t, c = kv.shape
     assert t % group == 0, f"token count {t} not a multiple of group {group}"
-    return np.ascontiguousarray(kv.reshape(t // group, group, c).transpose(0, 2, 1))
+    return kv.reshape(t // group, group, c).permute(0, 2, 1).contiguous()
 
 
-def uncluster_np(grouped: np.ndarray) -> np.ndarray:
+def uncluster(grouped: torch.Tensor) -> torch.Tensor:
     g, c, n = grouped.shape
-    return np.ascontiguousarray(grouped.transpose(0, 2, 1)).reshape(g * n, c)
+    return grouped.permute(0, 2, 1).reshape(g * n, c)
 
 
-def exp_delta_encode_np(
-    u: np.ndarray, spec: FloatSpec
-) -> tuple[np.ndarray, np.ndarray]:
-    """Delta-encode exponents along the last (token) axis.
-
-    ``u``: (..., channels, group) raw uint view.  Returns (encoded, base)
-    where ``base`` is (..., channels) uint8 — the per-channel base exponent
-    beta_j (eq. 6).  Integer specs pass through unchanged with empty bases.
-    """
-    if spec.exp_bits == 0:
-        return u, np.zeros(u.shape[:-1], np.uint8)
-    exp = (u >> spec.man_bits) & spec.exp_mask
-    base = exp.min(axis=-1)
-    delta = exp - base[..., None]
-    encoded = (u & ~np.array(spec.exp_mask << spec.man_bits, u.dtype)) | (
-        delta.astype(u.dtype) << spec.man_bits
-    )
-    return encoded, base.astype(np.uint8)
+def exp_delta_encode(u: torch.Tensor, spec: FloatSpec) -> tuple:
+    """Delta-encode exponents along the last (token) axis of ``u`` (...,
+    channels, group).  Returns (encoded, base (..., channels) uint8)."""
+    enc, base = exp_delta_ops.encode(u.reshape(-1, u.shape[-1]), spec)
+    return enc.reshape(u.shape), base.reshape(u.shape[:-1])
 
 
-def exp_delta_decode_np(
-    encoded: np.ndarray, base: np.ndarray, spec: FloatSpec
-) -> np.ndarray:
-    if spec.exp_bits == 0:
-        return encoded
-    delta = (encoded >> spec.man_bits) & spec.exp_mask
-    exp = delta + base[..., None].astype(encoded.dtype)
-    return (encoded & ~np.array(spec.exp_mask << spec.man_bits, encoded.dtype)) | (
-        (exp & spec.exp_mask).astype(encoded.dtype) << spec.man_bits
-    )
+def exp_delta_decode(encoded: torch.Tensor, base: torch.Tensor,
+                     spec: FloatSpec) -> torch.Tensor:
+    g = encoded.shape[-1]
+    return exp_delta_ops.decode(encoded.reshape(-1, g), base.reshape(-1),
+                                spec).reshape(encoded.shape)
 
 
-def xor_encode_np(u: np.ndarray) -> np.ndarray:
+def xor_encode(u: torch.Tensor) -> torch.Tensor:
     """XOR each token with its predecessor along the last axis (first kept)."""
-    out = u.copy()
+    out = u.clone()
     out[..., 1:] = u[..., 1:] ^ u[..., :-1]
     return out
 
 
-def xor_decode_np(encoded: np.ndarray) -> np.ndarray:
-    return np.bitwise_xor.accumulate(encoded, axis=-1)
+def xor_decode(encoded: torch.Tensor) -> torch.Tensor:
+    """Cumulative XOR along the last axis (a doubling prefix scan)."""
+    out, step = encoded.clone(), 1
+    while step < out.shape[-1]:
+        prev = out.clone()
+        out[..., step:] ^= prev[..., :-step]
+        step *= 2
+    return out
 
 
-def cluster_and_encode_np(
-    kv_u: np.ndarray, spec: FloatSpec, group: int = DEFAULT_GROUP,
+def cluster_and_encode(
+    kv_u: torch.Tensor, spec: FloatSpec, group: int = DEFAULT_GROUP,
     mode: str = "delta",
-) -> tuple[np.ndarray, np.ndarray]:
-    """(tokens, channels) uint view -> (encoded grouped uints, bases).
+) -> tuple:
+    """(tokens, channels) raw bits -> (encoded grouped bits (G, C, group),
+    bases (G, C) uint8).
 
     ``mode``: 'delta' (exponent delta, default), 'xor', or 'none' (grouping
     only — the paper's grouping-without-de-correlation ablation).
     """
-    grouped = cluster_np(kv_u, group)  # (G, C, group)
+    grouped = cluster(kv_u, group)
+    zeros = torch.zeros(grouped.shape[:-1], dtype=torch.uint8, device=grouped.device)
     if mode == "delta":
-        return exp_delta_encode_np(grouped, spec)
+        return exp_delta_encode(grouped, spec)
     if mode == "xor":
-        return xor_encode_np(grouped), np.zeros(grouped.shape[:-1], np.uint8)
+        return xor_encode(grouped), zeros
     if mode == "none":
-        return grouped, np.zeros(grouped.shape[:-1], np.uint8)
+        return grouped, zeros
     raise ValueError(f"unknown de-correlation mode {mode!r}")
 
 
-def decode_and_uncluster_np(
-    encoded: np.ndarray, base: np.ndarray, spec: FloatSpec, mode: str = "delta"
-) -> np.ndarray:
+def decode_and_uncluster(
+    encoded: torch.Tensor, base: torch.Tensor, spec: FloatSpec,
+    mode: str = "delta",
+) -> torch.Tensor:
+    """The inverse of :func:`cluster_and_encode`: -> (tokens, channels)."""
     if mode == "delta":
-        grouped = exp_delta_decode_np(encoded, base, spec)
+        grouped = exp_delta_decode(encoded, base, spec)
     elif mode == "xor":
-        grouped = xor_decode_np(encoded)
+        grouped = xor_decode(encoded)
     elif mode == "none":
         grouped = encoded
     else:
         raise ValueError(f"unknown de-correlation mode {mode!r}")
-    return uncluster_np(grouped)
+    return uncluster(grouped)

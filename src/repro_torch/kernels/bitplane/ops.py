@@ -59,7 +59,8 @@ def unpack_raw(planes: torch.Tensor, bits: int, keep: int,
     return K.unpack(planes[:keep].contiguous(), bits, keep, dtype)
 
 
-def _container(spec: FloatSpec) -> torch.dtype:
+def container(spec: FloatSpec) -> torch.dtype:
+    """The raw-bit container of a spec's values (int4 in a uint8)."""
     return K.CONTAINERS[max(1, spec.bits // 8)]
 
 
@@ -69,7 +70,7 @@ def pack(x: torch.Tensor, spec: FloatSpec,
 
     The values are padded with zeros to a whole number of compression
     blocks of ``8 * block_bytes`` values, as the reference pads them."""
-    u = x.contiguous().view(_container(spec)).reshape(-1)
+    u = x.contiguous().view(container(spec)).reshape(-1)
     n = u.numel()
     rem = (-n) % (8 * block_bytes)
     if rem:
@@ -82,6 +83,6 @@ def unpack(planes: torch.Tensor, spec: FloatSpec, shape,
     """Planes -> tensor of ``shape`` (top-``keep``-plane truncation applied
     when keep < bits — the memory-side meaning of FP-k)."""
     keep = spec.bits if keep is None else keep
-    u = unpack_raw(planes, spec.bits, keep, _container(spec))
+    u = unpack_raw(planes, spec.bits, keep, container(spec))
     n = math.prod(shape)
     return u[:n].view(VALUE_DTYPES[spec.name]).reshape(shape)

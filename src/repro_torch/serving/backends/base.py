@@ -21,9 +21,10 @@ Protocol surface (what the scheduler calls — everything else is private):
 ========================  ===================================================
 
 The device cache lives on the backend's torch device; the store,
-controller and lane engine are host-side NumPy copies of the reference's.
-Device->host copies carry bf16 as ``uint16`` bit patterns
-(:func:`~repro_torch.core.bitplane.bf16_to_numpy`).
+controller and lane engine are host-side copies of the reference's.  A
+stored page is transformed on the device (cluster, exponent delta,
+bit-plane pack: ``compressed_store.encode_kv``, one call per span); only
+its planes and bases cross to the host, where the codec runs.
 
 Not in this slice (each raises where it is asked for): the ring and sharded
 backends, shared-prefix pages, compressed weight streaming and staged
@@ -40,8 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.compression import default_codec
-from repro_torch.core.bitplane import bf16_to_numpy
-from repro_torch.core.compressed_store import StoreConfig
+from repro_torch.core.compressed_store import StoreConfig, encode_pages
 from repro_torch.core.controller import MemoryController
 from repro_torch.core.quantization import (
     assign_page_precision,
@@ -56,7 +56,7 @@ from repro_torch.serving.kv_cache import (
     CompressedKVStore,
     PageEvictedError,
     PageKey,
-    iter_page_chunks,
+    split_pages,
 )
 from repro_torch.telemetry.collector import NULL_COLLECTOR
 
@@ -197,6 +197,9 @@ class KVBackend(abc.ABC):
                                              telemetry=self.telemetry)]
         self._cache = None
         self._slots: Dict[int, SlotState] = {}
+        #: device page transforms (one ``encode_kv`` each): page-writing
+        #: spans and re-activated pages
+        self.page_encodes = {"write_spans": 0, "reactivations": 0}
 
     # ------------------------------------------------------------ validation
     @classmethod
@@ -282,26 +285,36 @@ class KVBackend(abc.ABC):
         cap = self.cfg.store_layers
         return n_layers if cap is None else min(cap, n_layers)
 
-    def slot_kv_host(self, slot_id: int, t0: int, t1: int):
-        """Device->host copy of this slot's KV rows [t0, t1) for the stored
-        layers, flattened to (L_stored, tokens, channels) raw bf16 bits
-        (``uint16``).  The bit-plane layout unpacks at full precision first
-        — packing is a bf16 bitcast, so the copy is bit-identical to the
-        dense layout's."""
+    def slot_kv_bits(self, slot_id: int, t0: int, t1: int,
+                     layers: slice = slice(None)) -> torch.Tensor:
+        """This slot's KV rows [t0, t1) of the stored layers (or the
+        ``layers`` slice of them) on the device, as raw bf16 bits:
+        (layers, 2 streams k/v, tokens, channels) ``int16``.  The bit-plane
+        layout unpacks both streams at full precision in one launch —
+        packing is a bf16 bitcast, so the bits equal the dense layout's."""
         ls = self.stored_layers()
         t = t1 - t0
         if self.device_kv == "bitplane":
-            out = []
-            for name in ("k_planes", "v_planes"):
-                # (ls, bits, t, Hkv, hd8) -> planes first, layers as batch
-                pl = self._cache[name][:ls, :, slot_id, t0:t1].movedim(1, 0)
-                dense = unpack_kv(pl, pl.shape[0], pl.shape[0])
-                out.append(bf16_to_numpy(dense.reshape(ls, t, -1)))
-            return tuple(out)
-        return tuple(
-            bf16_to_numpy(self._cache[name][:ls, slot_id, t0:t1].reshape(ls, t, -1))
-            for name in ("k", "v")
-        )
+            # (L, bits, B, T, Hkv, hd8) -> (bits, 2, layers, t, Hkv, hd8)
+            pl = torch.stack([self._cache[name][:ls][layers, :, slot_id, t0:t1]
+                              for name in ("k_planes", "v_planes")]).movedim(2, 0)
+            dense = unpack_kv(pl, pl.shape[0], pl.shape[0])
+        else:
+            dense = torch.stack([self._cache[name][:ls][layers, slot_id, t0:t1]
+                                 for name in ("k", "v")])
+        return dense.reshape(2, -1, t, dense.shape[-2] * dense.shape[-1]) \
+            .transpose(0, 1).view(torch.int16)
+
+    def encode_span(self, bits: torch.Tensor) -> tuple:
+        """Raw KV bits (..., tokens, channels) -> (one page object per
+        (..., page) in row-major order, valid tokens per page): the tail
+        page padded by repeating the last token, every page transformed in
+        one ``encode_kv`` call on the device, the planes and bases copied
+        to the host once (``compressed_store.encode_pages``)."""
+        pages, valid = split_pages(bits)
+        store = self.tiers[0].store
+        return encode_pages(pages.reshape(-1, *pages.shape[-2:]), store.spec,
+                            store.config), valid
 
     # --------------------------------------------------------- slot lifecycle
     def bind_slot(self, slot_id: int, rid: int) -> None:
@@ -361,37 +374,42 @@ class KVBackend(abc.ABC):
 
     def _write_span(self, slot_id: int, t0: int, t1: int) -> None:
         """Page-split device KV rows [t0, t1) (t0 page-aligned; a ragged t1
-        becomes an exact-length tail page) and queue one write job per page
-        per stream per stored layer."""
+        becomes an exact-length tail page), transform every (layer, stream,
+        page) of the span on the device at once, and queue one write job
+        per page per stream per stored layer."""
         st = self._slots[slot_id]
-        k_np, v_np = self.slot_kv_host(slot_id, t0, t1)
+        pages, valid = self.encode_span(self.slot_kv_bits(slot_id, t0, t1))
+        self.page_encodes["write_spans"] += 1
         first_page = t0 // PAGE_TOKENS
-        for li in range(k_np.shape[0]):
-            for stream, kv in (("k", k_np[li]), ("v", v_np[li])):
-                for p, chunk, valid in iter_page_chunks(kv, first_page):
+        it = iter(pages)
+        for li in range(self.stored_layers()):
+            for stream in ("k", "v"):
+                for j, v in enumerate(valid):
                     self._submit_page_write(
-                        st, PageKey(st.rid, li, p, stream), chunk, valid
+                        st, PageKey(st.rid, li, first_page + j, stream), next(it), v
                     )
 
-    def _submit_page_write(self, st: SlotState, key: PageKey,
-                           chunk: np.ndarray, valid: int,
+    def _submit_page_write(self, st: SlotState, key: PageKey, page,
+                           valid: int,
                            klass: JobClass = JobClass.KV_WRITE) -> None:
-        """Queue one page's compress-and-store.  The chunk is captured at
-        submit time (the token range is append-only); the store put — and
-        its charged kv_write — happens when the engine services the job, at
-        the ladder planes assigned by then.  ``valid`` < PAGE_TOKENS marks
-        an exact-length tail page; the job is sized by its pad-free bytes.
-        ``klass=BACKGROUND`` is a re-activation of an evicted page."""
+        """Queue one page's compress-and-store.  The page is transformed at
+        submit time (the token range is append-only); the codec, the store
+        put — and its charged kv_write — happen when the engine services
+        the job, at the ladder planes assigned by then.  ``valid`` <
+        PAGE_TOKENS marks an exact-length tail page; the job is sized by its
+        pad-free logical bytes.  ``klass=BACKGROUND`` is a re-activation of
+        an evicted page."""
         tier = self.tiers[0]
 
         def fn(store=tier.store):
-            store.put_page(key, chunk, planes=st.page_planes.get(key.page_idx),
+            store.put_page(key, page, planes=st.page_planes.get(key.page_idx),
                            valid_tokens=valid)
             if klass == JobClass.BACKGROUND:
                 self.stats["kv_reactivations"] += 1
 
-        tier.engine.submit(Job(klass, chunk[:valid].nbytes, fn=fn,
-                               key=key.astuple(), seq_id=st.rid))
+        nbytes = valid * page.shape[1] * tier.store.spec.bits // 8
+        tier.engine.submit(Job(klass, nbytes, fn=fn, key=key.astuple(),
+                               seq_id=st.rid))
 
     def _account_step_fetch(self, slot_id: int) -> None:
         """Queue this decode step's KV traffic for one slot as
@@ -426,10 +444,10 @@ class KVBackend(abc.ABC):
         stored tail re-activates at its exact valid length."""
         st = self._slots[slot_id]
         t0 = key.page_idx * PAGE_TOKENS
-        valid = min(PAGE_TOKENS, st.stored_tokens - t0)
-        k_np, v_np = self.slot_kv_host(slot_id, t0, t0 + valid)
-        kv = k_np[key.layer] if key.stream == "k" else v_np[key.layer]
-        _, page, valid = next(iter_page_chunks(kv))
+        t1 = min(t0 + PAGE_TOKENS, st.stored_tokens)
+        bits = self.slot_kv_bits(slot_id, t0, t1, slice(key.layer, key.layer + 1))
+        (page,), (valid,) = self.encode_span(bits[0, ("k", "v").index(key.stream)])
+        self.page_encodes["reactivations"] += 1
         self._submit_page_write(st, key, page, valid, JobClass.BACKGROUND)
 
     # ---------------------------------------------------------------- ladder

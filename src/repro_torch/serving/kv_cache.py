@@ -16,10 +16,14 @@ partial-plane reads).
   charges exactly those planes' compressed bytes per decode-step read.
 
 A copy of the reference's ``serving/kv_cache.py`` without its
-shared-prefix machinery (prefix sharing is a later slice).  Pages arrive as
-NumPy arrays of raw bf16 bit patterns (``uint16``), which the controller
-compresses exactly as the reference compresses its NumPy bf16
-extension-type pages.
+shared-prefix machinery (prefix sharing is a later slice).  A page arrives
+as a NumPy array of raw bf16 bit patterns (``uint16``) or as an
+:class:`~repro_torch.core.compressed_store.EncodedKV` that the device
+already clustered, delta-encoded and bit-plane packed; either way the
+controller stores exactly the blobs the reference stores for its NumPy
+bf16 extension-type pages.  :meth:`CompressedKVStore.put_sequence` and
+:meth:`~CompressedKVStore.get_sequence` transform all of a sequence's
+pages at once, on the device the KV lies on (or is asked for).
 """
 
 from __future__ import annotations
@@ -29,28 +33,33 @@ from collections import OrderedDict
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.bitplane import SPECS, FloatSpec
-from repro_torch.core.compressed_store import StoreConfig
+from repro_torch.core.compressed_store import (
+    StoreConfig,
+    bits_tensor,
+    decompress_kv_pages,
+    encode_pages,
+)
 from repro_torch.core.controller import MemoryController
 
 PAGE_TOKENS = 16
 
 
-def iter_page_chunks(kv: np.ndarray, first_page: int = 0):
-    """Yield ``(page_idx, chunk, valid_tokens)`` page-splits of ``kv``
-    (tokens, channels); the tail page is padded by repeating the last token,
-    so the pad never pollutes the delta-decorrelation stats, and
-    ``valid_tokens`` records how many leading rows are real data so the
-    store's logical accounting stays pad-free."""
-    t = kv.shape[0]
-    for p in range(-(-t // PAGE_TOKENS)):
-        chunk = kv[p * PAGE_TOKENS : (p + 1) * PAGE_TOKENS]
-        valid = chunk.shape[0]
-        if valid < PAGE_TOKENS:
-            pad = np.repeat(chunk[-1:], PAGE_TOKENS - valid, axis=0)
-            chunk = np.concatenate([chunk, pad])
-        yield first_page + p, chunk, valid
+def split_pages(kv: torch.Tensor) -> tuple:
+    """(..., tokens, channels) -> ((..., n_pages, PAGE_TOKENS, channels),
+    valid tokens per page).  The tail page is padded by repeating the last
+    token, so the pad never pollutes the delta-decorrelation stats; the
+    valid counts keep the store's logical accounting pad-free."""
+    t = kv.shape[-2]
+    pad = (-t) % PAGE_TOKENS
+    if pad:
+        tail = kv[..., -1:, :].expand(*kv.shape[:-2], pad, kv.shape[-1])
+        kv = torch.cat([kv, tail], dim=-2)
+    n = kv.shape[-2] // PAGE_TOKENS
+    valid = [min(PAGE_TOKENS, t - p * PAGE_TOKENS) for p in range(n)]
+    return kv.reshape(*kv.shape[:-2], n, PAGE_TOKENS, kv.shape[-1]), valid
 
 
 @dataclasses.dataclass
@@ -100,11 +109,12 @@ class CompressedKVStore:
         }
 
     # ------------------------------------------------------------------ pages
-    def put_page(self, key: PageKey, kv: np.ndarray,
+    def put_page(self, key: PageKey, kv,
                  planes: int | None = None,
                  valid_tokens: int | None = None) -> None:
         """kv: (PAGE_TOKENS, channels) in the store's value dtype (bf16 as
-        its uint16 bit patterns).
+        its uint16 bit patterns), or the page already transformed on the
+        device (an ``EncodedKV`` of that shape, planes on the host).
 
         ``valid_tokens`` < PAGE_TOKENS marks an exact-length tail page: the
         trailing rows are physical padding (repeats of the last real token)
@@ -124,15 +134,17 @@ class CompressedKVStore:
         self._stored += ct.stored_bytes
         self._enforce_budget(protect=kt)
 
-    def get_page(self, key: PageKey, keep_planes: int | None = None) -> np.ndarray:
-        """Decompress a page (optionally at reduced precision).  Raises
+    def get_page(self, key: PageKey, keep_planes: int | None = None,
+                 device=None):
+        """Decompress a page (optionally at reduced precision): NumPy with
+        ``device=None``, else raw bits on ``device``.  Raises
         :class:`PageEvictedError` if the budget already reclaimed it."""
         kt = key.astuple()
         self._require(kt)
         self._lru.move_to_end(kt)
         if keep_planes is None:
             keep_planes = self._planes.get(kt)
-        return self.controller.read_kv_page(kt, keep_planes)
+        return self.controller.read_kv_page(kt, keep_planes, device)
 
     def account_fetch(self, key: PageKey, keep_planes: int | None = None) -> int:
         """Accounting-only read (values already resident on device): logs the
@@ -175,6 +187,46 @@ class CompressedKVStore:
             return ct.valid_logical_bytes, ct.spec.bits
         return (max(1, round(ct.valid_logical_bytes * keep / ct.spec.bits)),
                 keep)
+
+    # -------------------------------------------------------------- sequences
+    def put_sequence(self, seq_id: int, layer: int, stream: str, kv,
+                     first_page: int = 0, planes: int | None = None) -> int:
+        """kv: (tokens, channels), NumPy (bf16 as uint16) or a tensor; pads
+        the tail page.  All pages are transformed in one ``encode_kv`` on
+        the tensor's device (a NumPy input on the CPU), then put page by
+        page.  Returns pages written.
+
+        ``first_page`` offsets the page index — the scheduler streams decode
+        pages into the store incrementally as each fills."""
+        pages, valid = split_pages(bits_tensor(kv, self.spec))
+        for p, (page, v) in enumerate(zip(encode_pages(pages, self.spec, self.config),
+                                          valid)):
+            self.put_page(PageKey(seq_id, layer, first_page + p, stream), page,
+                          planes=planes, valid_tokens=v)
+        return len(valid)
+
+    def get_sequence(self, seq_id: int, layer: int, stream: str, tokens: int,
+                     keep_by_page: dict | None = None, device=None):
+        """The first ``tokens`` rows of a sequence, each page at its
+        ``keep_by_page`` planes (else its ladder hint, else full).  Pages
+        are checked and charged one kv_read each, in page order, as the
+        reference's per-page loop does (a miss raises
+        :class:`PageEvictedError` after the earlier pages were charged);
+        then all pages decode together (one unpack and one exponent-delta
+        decode): NumPy with ``device=None``, else raw bits on ``device``."""
+        cts, keeps = [], []
+        for p in range(-(-tokens // PAGE_TOKENS)):
+            kt = PageKey(seq_id, layer, p, stream).astuple()
+            self._require(kt)
+            self._lru.move_to_end(kt)
+            keep = (keep_by_page or {}).get(p)
+            keep = self._planes.get(kt) if keep is None else keep
+            self.controller.account_kv_read(kt, keep)
+            cts.append(self.controller.kv_page(kt))
+            keeps.append(keep)
+        parts = decompress_kv_pages(cts, keeps, device)
+        cat = np.concatenate if device is None else torch.cat
+        return cat(parts)[:tokens]
 
     def drop_sequence(self, seq_id: int) -> None:
         """Retire a finished request: free its pages (no bus traffic)."""

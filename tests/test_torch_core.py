@@ -80,13 +80,18 @@ def test_codec_blobs_identical(codec):
 
 @pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("tokens", [16, 37])
-def test_compress_kv_bit_exact(codec, tokens):
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+def test_compress_kv_bit_exact(codec, tokens, kind):
     _need(codec)
     rng = np.random.default_rng(tokens)
     kv = _bf16(rng, tokens, 32, scale=0.5)
     jct = JS.compress_kv(kv, J_SPECS["bf16"], JS.StoreConfig(codec=codec))
-    # the port takes bf16 as its raw uint16 bit patterns
-    tct = TS.compress_kv(kv.view(np.uint16), T_SPECS["bf16"], TS.StoreConfig(codec=codec))
+    # the port takes bf16 as its raw uint16 bit patterns, or a CPU tensor of
+    # bf16 values (transformed by the kernels' plain versions)
+    bits = kv.view(np.uint16)
+    if kind == "tensor":
+        bits = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    tct = TS.compress_kv(bits, T_SPECS["bf16"], TS.StoreConfig(codec=codec))
     assert tct.segments == jct.segments and tct.base_blob == jct.base_blob
     assert tct.stored_bytes == jct.stored_bytes
     for keep in (None, 12, 8, 4):

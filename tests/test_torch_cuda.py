@@ -1,5 +1,5 @@
-"""The port's bit-plane, SSD and flash-attention CUDA kernels against their
-plain PyTorch versions on the card.  Every test here needs an NVIDIA GPU and ``nvcc``, carries
+"""The port's bit-plane, exponent-delta, SSD and flash-attention CUDA
+kernels against their plain PyTorch versions on the card.  Every test here needs an NVIDIA GPU and ``nvcc``, carries
 the ``cuda`` marker and skips without a GPU.  The file imports no JAX, so
 it runs on the GPU host:
 
@@ -15,7 +15,9 @@ attention rounds p to bf16 at the running max of its 64-key tiles, the plain
 version at that of its 512-key chunks, and the float32 sums run in another
 order, which can flip a rounding of p or of the output: it is held to two
 bf16 steps at the largest magnitude of each output row (batch row, query,
-head), since a causal row's output shrinks with its depth.
+head), since a causal row's output shrinks with its depth.  The
+exponent-delta encode and decode are integer transforms and, like the KV
+store's blobs and decoded pages, must match bit for bit.
 """
 
 import pytest
@@ -26,6 +28,8 @@ from repro_torch.kernels.bitplane import ref as R
 from repro_torch.kernels.bitplane_matmul import kernel as MK
 from repro_torch.kernels.bitplane_matmul import ops as MM
 from repro_torch.kernels.bitplane_matmul import ref as MR
+from repro_torch.kernels.exp_delta import kernel as EK
+from repro_torch.kernels.exp_delta import ref as ER
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as FO
 from repro_torch.kernels.flash_attention import ref as FR
@@ -198,3 +202,90 @@ def test_cuda_zamba2_prefill_runs_flash_once_per_shared_block():
     torch.cuda.synchronize()
     assert FK.LAUNCHES["flash_attention"] == 0 and SK.LAUNCHES["ssd"] == 0
     assert tok.dtype == torch.int32 and int(cache["len"]) == 74
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,g,bits", [
+    (256 * 192, 16, 16), (8 * 192, 16, 16), (32 * 256, 16, 16),
+    (256 * 192, 16, 8), (7 * 24, 16, 16), (300, 8, 16), (64, 4, 8),
+    (100, 12, 16), (96, 16, 32)])
+def test_cuda_exp_delta_matches_plain_on_card(rows, g, bits):
+    """Bit-exact: a 512-token serving span (256 pages of 192 channels), a
+    decode page fill (8 pages), the quickstart's KV (32 groups of 256
+    channels), fp8_e4m3 in uint8, ragged row counts, the reference's test
+    shapes (G 8 and 4) and G 12, which take the kernel's run-time path as
+    every G but 16 does, and fp32;
+    then decode of top-k truncations of the encoded values."""
+    dev = _cuda()
+    man, mask = {16: (7, 0xFF), 8: (3, 0xF), 32: (23, 0xFF)}[bits]
+    gen = torch.Generator(device=dev).manual_seed(rows + g)
+    dtype = K.CONTAINERS[bits // 8]
+    u = torch.randint(-(1 << 31), 1 << 31, (rows, g), generator=gen, device=dev,
+                      dtype=torch.int64)
+    u = ER._narrow(u & ((1 << bits) - 1), dtype)
+    enc, base = EK.encode(u, man, mask)
+    enc_r, base_r = ER.encode_ref(u, man, mask)
+    assert torch.equal(enc, enc_r) and torch.equal(base, base_r)
+    assert torch.equal(EK.decode(enc, base, man, mask), u)
+    for keep in (k for k in (12, 8, 4) if k < bits):
+        low = (1 << (bits - keep)) - 1
+        trunc = ER._narrow(ER._widen(enc) & ~low, dtype)
+        assert torch.equal(EK.decode(trunc, base, man, mask),
+                           ER.decode_ref(trunc, base, man, mask))
+    torch.cuda.synchronize()
+
+
+def _kv_bits(dev, tokens, channels, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kv = torch.randn((tokens, channels), generator=gen, device=dev) * 0.5
+    return kv.to(torch.bfloat16).view(torch.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [16, 37, 512])
+def test_cuda_compress_kv_equals_cpu(tokens):
+    """compress_kv of a CUDA tensor (transformed by the kernels) gives the
+    CPU's blobs for the same bits, and decompresses to them on the card."""
+    from repro_torch.core import compressed_store as CS
+    from repro_torch.core.bitplane import BF16
+
+    dev = _cuda()
+    kv = _kv_bits(dev, tokens, 192, tokens)
+    cfg = CS.StoreConfig(codec="lz4")
+    EK.reset_launches()
+    ct = CS.compress_kv(kv, BF16, cfg)
+    assert EK.LAUNCHES["exp_delta_encode"] == 1
+    ref = CS.compress_kv(kv.cpu(), BF16, cfg)
+    assert ct.segments == ref.segments and ct.base_blob == ref.base_blob
+    for keep in (None, 12, 8, 4):
+        got = CS.decompress_kv(ct, keep, device=dev)
+        want = CS.decompress_kv(ref, keep, device="cpu")
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert torch.equal(CS.decompress_kv(ct, device=dev), kv)
+    assert EK.LAUNCHES["exp_delta_decode"] == 5
+
+
+@pytest.mark.cuda
+def test_cuda_get_sequence_round_trip():
+    """put_sequence / get_sequence on the card: one encode per put, one
+    decode per get; full precision reads the KV back bit for bit, a ladder
+    of keeps equals the CPU store's read."""
+    from repro_torch.core.compressed_store import StoreConfig
+    from repro_torch.serving.kv_cache import CompressedKVStore
+
+    dev = _cuda()
+    kv = _kv_bits(dev, 70, 192, 3)
+    card = CompressedKVStore(config=StoreConfig(codec="lz4"))
+    host = CompressedKVStore(config=StoreConfig(codec="lz4"))
+    EK.reset_launches()
+    assert card.put_sequence(1, 0, "k", kv) == host.put_sequence(1, 0, "k", kv.cpu()) == 5
+    assert EK.LAUNCHES["exp_delta_encode"] == 1
+    assert torch.equal(card.get_sequence(1, 0, "k", 70, device=dev), kv)
+    full = host.get_sequence(1, 0, "k", 70)
+    assert torch.equal(kv.cpu(), torch.from_numpy(full.view("int16")))
+    keeps = {0: 12, 1: 8, 2: 4, 4: 16}
+    got = card.get_sequence(1, 0, "k", 70, keeps, device=dev)
+    want = host.get_sequence(1, 0, "k", 70, keeps)
+    assert torch.equal(got.cpu(), torch.from_numpy(want.view("int16")))
+    assert EK.LAUNCHES["exp_delta_decode"] == 2
+    assert card.controller.stats.totals == host.controller.stats.totals
