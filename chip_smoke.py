@@ -32,7 +32,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    Exponent-delta encode and decode bit for bit at a 512-token serving
    span (4 stored layers x 2 streams x 32 pages of 192 channels), a decode
    page fill (8 pages), the quickstart's KV, fp8_e4m3 in uint8, ragged row
-   counts, and decode of top-k truncations (keep 12, 8, 4).
+   counts, and decode of top-k truncations (keep 12, 8, 4).  The bit-plane
+   matmul also at the Zamba2-7B MLP up-projection (M 8 and 128 x 3584 x
+   14336), every matmul shape at keep 16, 12, 8, 4, 1 and 0.
 3. Serve 16 requests through ``ContinuousScheduler`` on full-width
    SmolLM-135M (random weights from a seeded ``torch.Generator``, 30
    layers) with bit-plane device KV and a precision ladder, once through
@@ -44,7 +46,16 @@ Phases (any failure exits non-zero; no phase's error is caught):
    kernel time against host wall time, and launches per decode step);
    the launches of one prefill chunk (30 flash launches, one a layer); then one teacher-forced decode step
    from a snapshot of the serving cache, three ways (fused, rung, plain),
-   whose logits must agree.
+   whose logits must agree.  The two serving runs are held against each
+   other in two untimed check runs that repeat them (the same tokens and
+   counters): ``model.decode`` is wrapped (``DecodeWatch``) to keep each
+   step's logits rows; at each request's first divergent token each run's
+   row must agree with the plain attention's on its own cache within the
+   teacher-forced bound, and rows of the two runs that consumed the same
+   tokens and read the same ladder plane maps must agree within it too.
+   Each run's queued page-write bytes must equal its stored logical bytes
+   plus the bytes of the writes ``retire`` cancelled (``write_job_ledger``),
+   and the queued bytes must be equal across the runs.
 3c. The memory tier's round trip at the serving width: the snapshot's
    device KV of enough slots for at least 512 pages (4 stored layers x 2
    streams, 192 channels) through ``put_sequence`` into a card store and a
@@ -78,8 +89,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    prefill, and every slot layer by layer.
 6. Kernel times (CUDA events and profiler device time) beside their
    bound, the plain version's time and one PyTorch call's where one
-   computes the same function, printed as one ``{"kernels": [...]}`` line
-   (nine rows: every kernel of the port).
+   computes the same function (device time too for the paged rows and the
+   matmul), printed as one ``{"kernels": [...]}`` line (nine rows: every
+   kernel of the port; the matmul row carries its Zamba2-7B MLP rows, cold,
+   under ``shapes``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -119,6 +132,10 @@ LOGITS_RTOL_OF_MAX = 5e-2
 # products in float32; the kernel sums them in K order, the plain version
 # through cuBLAS in an order of its own.
 MATMUL_ATOL = MATMUL_RTOL = 1e-4
+# The bit-plane matmul at the Zamba2-7B MLP up-projection (d_model 3584 ->
+# d_ff 14336), at decode (M 8) and at M 128: its weight (103 MB of bf16) is
+# larger than L2, and phase 6 times it cold
+ZAMBA_MLP = [(8, 3584, 14336), (128, 3584, 14336)]
 # Quickstart: the top-8-plane matmul's relative error on the card against
 # the CPU run's (float32 norms of sums taken in another order).
 QUICKSTART_REL_TOL = 1e-3
@@ -314,14 +331,14 @@ def device_rows(run, what: str, expect: dict | None = None) -> list:
     return rows
 
 
-def device_ms(fn, match: str = "", iters: int = 50) -> float:
+def device_ms(fn, match: str = "", iters: int = 50, per_call: int = 1) -> float:
     """Device time per call of ``fn(i)``: the summed time of the device
     kernels whose name contains ``match`` (all of them when empty) in a
     profiler window of ``iters`` calls (``device_rows``), divided by
     ``iters``.  Unlike CUDA events around back-to-back calls, it leaves
     out the gaps in which the host was still issuing the next launch.
-    With a ``match`` (one kernel a call) the window must hold ``iters``
-    launches of it."""
+    With a ``match`` (``per_call`` kernels a call) the window must hold
+    ``iters * per_call`` launches of it."""
     fn(0)
 
     def run():
@@ -329,7 +346,7 @@ def device_ms(fn, match: str = "", iters: int = 50) -> float:
             fn(i)
 
     rows = [e for e in device_rows(run, match or "a plain call",
-                                   {match: iters} if match else None)
+                                   {match: iters * per_call} if match else None)
             if match in e.key]
     return sum(e.self_device_time_total for e in rows) / iters / 1e3
 
@@ -432,11 +449,12 @@ def check_bitplane_kernels(torch, dev) -> dict:
                 raise AssertionError(f"bitplane_unpack differs from plain at m={m}, keep={keep}")
     errs = {"bitplane_pack": 0.0, "bitplane_unpack": 0.0}
     worst = 0.0
-    for m, k, n in [(8, 1024, 1024)] + [(m, k, n) for m in (8, 128) for k, n in PROJECTIONS]:
+    for m, k, n in [(8, 1024, 1024), *ZAMBA_MLP] + [(m, k, n) for m in (8, 128)
+                                                    for k, n in PROJECTIONS]:
         w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         planes = MM.pack_weights(w)
-        for keep in (16, 12, 8, 4):
+        for keep in (16, 12, 8, 4, 1, 0):
             got = MK.bitplane_matmul(x, planes, keep=keep)
             want = MR.bitplane_matmul_ref(x, planes, keep)
             torch.cuda.synchronize()
@@ -615,8 +633,261 @@ def engine_config(kernel: str):
                         backend="paged")
 
 
-def serve(torch, model, params, kernel: str) -> tuple:
-    """One main-path run: launch counts reset just before, read just after."""
+@contextlib.contextmanager
+def write_job_ledger():
+    """During one serving run, the page-write jobs queued (the ``KV_WRITE``
+    and ``BACKGROUND`` jobs that store a page; eviction write-backs carry
+    no store call and are left out) and, by job class, the jobs and
+    logical bytes that ``retire`` cancelled, counted by wrapping the job
+    queue's ``push`` and ``cancel_seq`` (class attributes, restored on
+    exit).  Decode fetches are sized at service time, so a cancelled one
+    counts 0 bytes."""
+    from repro_torch.memctl.queue import JobClass, PriorityJobQueue
+
+    writes = (JobClass.KV_WRITE, JobClass.BACKGROUND)
+    ledger = {"submitted_write_bytes": 0, "cancelled_write_bytes": 0, "cancelled": {}}
+    push, cancel = PriorityJobQueue.push, PriorityJobQueue.cancel_seq
+
+    def counted_push(self, job):
+        if job.klass in writes and job.fn is not None:
+            ledger["submitted_write_bytes"] += job.nbytes
+        push(self, job)
+
+    def counted_cancel(self, seq_id):
+        for q in self._queues.values():
+            for job in q:
+                if job.seq_id != seq_id:
+                    continue
+                n = ledger["cancelled"].setdefault(job.klass.name, [0, 0])
+                n[0] += 1
+                n[1] += job.nbytes
+                if job.klass in writes and job.fn is not None:
+                    ledger["cancelled_write_bytes"] += job.nbytes
+        return cancel(self, seq_id)
+
+    PriorityJobQueue.push, PriorityJobQueue.cancel_seq = counted_push, counted_cancel
+    try:
+        yield ledger
+    finally:
+        PriorityJobQueue.push, PriorityJobQueue.cancel_seq = push, cancel
+
+
+class DecodeWatch:
+    """Records the decode steps of one phase-3 check run (a repeat of a
+    timed serving run, so that no work of the check falls inside the timed
+    run's clock) without a hook in the port: ``model.decode`` is wrapped by
+    an instance attribute (removed on exit) that calls the model's own
+    method, then reads which (request, output index) each logits row
+    produces from the scheduler's slots.  The row a decode step computes for
+    a slot produces output index ``len(output) + 1``: the token it consumes
+    (``pending``) is appended as ``output[len(output)]`` when the step
+    commits.
+
+    It keeps each step's logits on the card (126 steps of (8, 49152)
+    float32 at the phase's sizes, ~200 MB), the ladder plane map and
+    lengths the step read, and the row map.  At each request's first
+    divergent output (``first``: request -> output index, from the timed
+    runs) it replays the step through the plain attention, on the run's own
+    kernel route and a copy of the cache (its length set back by the one
+    token the step added; launch counts saved and restored), and keeps the
+    plain row."""
+
+    def __init__(self, torch, model, sched, first: dict):
+        self.torch, self.model, self.sched, self.first = torch, model, sched, first
+        self.orig = model.decode
+        self.logits: list = []  # the logits of each decode call
+        self.maps: list = []    # the plane map and lengths each call read
+        self.rows: dict = {}    # (rid, j) -> (call, row)
+        self.plain: dict = {}   # (rid, j) at a first divergence -> the plain row
+
+    def __enter__(self):
+        self.model.decode = self.decode
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.decode
+
+    def decode(self, params, token, cache, keeps=None, decode_kernel="fused"):
+        plane_map = (cache["planes"].clone(), cache["len"].clone())
+        logits, cache = self.orig(params, token, cache, keeps=keeps,
+                                  decode_kernel=decode_kernel)
+        live = [(i, s.req.rid, len(s.req.output) + 1)
+                for i, s in enumerate(self.sched._slots)
+                if s is not None and not s.prefilling]
+        for i, rid, j in live:
+            self.rows[(rid, j)] = (len(self.logits), i)
+        at = [(i, rid, j) for i, rid, j in live if self.first.get(rid) == j]
+        if at:
+            plain = self._plain(params, token, cache, keeps, decode_kernel)
+            for i, rid, j in at:
+                self.plain[(rid, j)] = plain[i]
+        self.logits.append(logits)
+        self.maps.append(plane_map)
+        return logits, cache
+
+    def _plain(self, params, token, cache, keeps, decode_kernel):
+        """This step's logits again, through ``plain_attention()``, on a
+        copy of the cache."""
+        from repro_torch.kernels.bitplane import kernel as BK
+        from repro_torch.kernels.exp_delta import kernel as EK
+        from repro_torch.kernels.flash_attention import kernel as FK
+        from repro_torch.kernels.paged_attention import kernel as K
+
+        mods = (K, BK, FK, EK)
+        saved = [dict(m.LAUNCHES) for m in mods]
+        c = {k: v.clone() for k, v in cache.items()}
+        c["len"] = cache["len"] - 1
+        with plain_attention():
+            plain, _ = self.orig(params, token, c, keeps=keeps, decode_kernel=decode_kernel)
+        for m, s in zip(mods, saved):
+            m.LAUNCHES.update(s)
+        return plain
+
+
+def first_divergences(fused_reqs, rung_reqs) -> dict:
+    """Request -> the first output index at which the two timed runs'
+    greedy tokens differ (requests that agree throughout are left out)."""
+    first = {}
+    for fr, rr in zip(fused_reqs, rung_reqs):
+        j = next((n for n, (a, b) in enumerate(zip(fr.output, rr.output)) if a != b), None)
+        if j is not None:
+            first[fr.rid] = j
+    return first
+
+
+def check_repeat(kernel: str, timed, check) -> None:
+    """A check run must repeat its timed run: the same greedy tokens and
+    the same counters (the serving path's control flow follows modeled
+    time, not the clock), so that what it checks is what the timed run
+    computed."""
+    (t_reqs, t_rep), (c_reqs, c_rep) = timed, check
+    keys = ("decode_steps", "kv_logical_bytes", "device_bytes_read", "kv_fetch_logical",
+            "engine_jobs_cancelled")
+    if [r.output for r in t_reqs] != [r.output for r in c_reqs] \
+            or any(t_rep[key] != c_rep[key] for key in keys):
+        raise AssertionError(f"{kernel}: the check run did not repeat the timed run: "
+                             f"{[(key, t_rep[key], c_rep[key]) for key in keys]}")
+
+
+def check_fused_against_rung(torch, fused_reqs, rung_reqs, first, fw, rw) -> None:
+    """Phase 3's check of the two serving runs, from their check runs'
+    watches.  Up to each request's first divergent output both fed the same
+    tokens.  At every first divergence each run's row must lie within
+    LOGITS_RTOL_OF_MAX of its largest logit of the plain attention's row on
+    that run's own cache (the teacher-forced bound): the kernel and its
+    plain version read the same inputs.  Where the two runs also read the
+    same ladder plane map at every step so far (the ladder re-ranks pages
+    from the keys, which the two kernels round apart, so a rank can flip at
+    a tie and the runs then read different planes), every row with equal
+    history must agree across the runs within the same bound; under it a
+    greedy token can flip only where the top-2 gap is below twice the
+    bound: a near-tie.  A larger difference is a kernel fault and fails the
+    run."""
+    keys = [(r.rid, j) for r in fused_reqs
+            for j in range(1, min(first.get(r.rid, len(r.output) - 1), len(r.output) - 1) + 1)]
+    missing = [key for key in keys if key not in fw.rows or key not in rw.rows]
+    missing += [(rid, j) for rid, j in first.items()
+                if (rid, j) not in fw.plain or (rid, j) not in rw.plain]
+    if missing:
+        raise AssertionError(f"no recorded decode row for (request, output) {missing[:8]} "
+                             f"(prefill tokens differ, or the watch missed the step)")
+    at_f, at_r = [fw.rows[key] for key in keys], [rw.rows[key] for key in keys]
+    f = torch.stack([fw.logits[c][i] for c, i in at_f])
+    r = torch.stack([rw.logits[c][i] for c, i in at_r])
+    # did the two runs read the same plane map for this slot (the pages up
+    # to and with the one this step's token lands in)?
+    fp = torch.stack([fw.maps[c][0][i] for c, i in at_f])
+    rp = torch.stack([rw.maps[c][0][i] for c, i in at_r])
+    fl = torch.stack([fw.maps[c][1][i] for c, i in at_f])
+    rl = torch.stack([rw.maps[c][1][i] for c, i in at_r])
+    pages = torch.arange(fp.shape[1], device=fp.device)
+    map_diff = ((fp != rp) & (pages[None] * 16 <= rl[:, None])).any(1) | (fl != rl)
+    # top-2 gaps from topk; top tokens from argmax, as the greedy sampler
+    # takes them (logits are bf16 products: exact ties occur, and topk may
+    # break them otherwise)
+    tf, tr = f.topk(2, dim=-1), r.topk(2, dim=-1)
+    stats = torch.stack([
+        (r - f).abs().amax(-1), torch.maximum(r.abs().amax(-1), f.abs().amax(-1)),
+        tf.values[:, 0] - tf.values[:, 1], tr.values[:, 0] - tr.values[:, 1],
+        map_diff.float()], dim=1).cpu().tolist()
+    rec = dict(zip(keys, stats))
+    div = sorted(first.items())
+    row = {key: n for n, key in enumerate(keys)}
+    pf = torch.stack([fw.plain[key] for key in div])
+    pr = torch.stack([rw.plain[key] for key in div])
+    fd, rd = f[[row[key] for key in div]], r[[row[key] for key in div]]
+    vs_plain = torch.stack([
+        (fd - pf).abs().amax(-1), torch.maximum(fd.abs().amax(-1), pf.abs().amax(-1)),
+        (rd - pr).abs().amax(-1), torch.maximum(rd.abs().amax(-1), pr.abs().amax(-1)),
+        pf.argmax(-1).float(), pr.argmax(-1).float()], dim=1).cpu().tolist()
+
+    split, faults = {}, []
+    for rid, j in keys:  # in output order per request
+        if rec[(rid, j)][4] and rid not in split:
+            split[rid] = j
+    outputs = {fr.rid: (fr.output, rr.output) for fr, rr in zip(fused_reqs, rung_reqs)}
+    worst_plain = 0.0
+    for (rid, j), (d_fp, s_fp, d_rp, s_rp, top_pf, top_pr) in zip(div, vs_plain):
+        d, scale, gap_f, gap_r, _ = rec[(rid, j)]
+        fo, ro = outputs[rid]
+        moved = [name for name, tok, top in (("fused", fo[j], top_pf), ("rung", ro[j], top_pr))
+                 if tok != int(top)]
+        worst_plain = max(worst_plain, d_fp / s_fp, d_rp / s_rp)
+        log(f"phase 3 divergence: request {rid} at output {j}/{len(fo)}: tokens fused {fo[j]} "
+            f"rung {ro[j]}, plain on each run's cache {int(top_pf)} / {int(top_pr)} (left its "
+            f"plain top: {', '.join(moved) or 'neither'}); top-2 gap fused {gap_f:.5f} rung "
+            f"{gap_r:.5f}; max|fused-rung| {d:.5f} (tolerance {LOGITS_RTOL_OF_MAX * scale:.5f}), "
+            f"max|fused-plain| {d_fp:.5f} ({LOGITS_RTOL_OF_MAX * s_fp:.5f}), max|rung-plain| "
+            f"{d_rp:.5f} ({LOGITS_RTOL_OF_MAX * s_rp:.5f}); plane maps "
+            + (f"differ since output {split[rid]}" if rid in split else "equal at every step"))
+        if d_fp > LOGITS_RTOL_OF_MAX * s_fp or d_rp > LOGITS_RTOL_OF_MAX * s_rp:
+            faults.append(("kernel vs plain", rid, j, d_fp, d_rp))
+    clean = [key for key in keys if key[0] not in split or key[1] < split[key[0]]]
+    worst = max((rec[key][0] / rec[key][1] for key in clean), default=0.0)
+    faults += [("fused vs rung", *key, rec[key][0], LOGITS_RTOL_OF_MAX * rec[key][1])
+               for key in clean if rec[key][0] > LOGITS_RTOL_OF_MAX * rec[key][1]]
+    prefix = [first.get(fr.rid, len(fr.output)) for fr in fused_reqs]
+    log(f"phase 3: first divergent output per request (agreeing prefix lengths) {prefix}; "
+        f"{sum(rid not in split for rid in first)} first divergences on equal plane maps, "
+        f"{sum(rid in split for rid in first)} after the maps split; {len(clean)} of "
+        f"{len(keys)} decode rows with equal history read equal plane maps, max "
+        f"|fused-rung| / max|logit| over them {worst:.5f}; at the {len(div)} first "
+        f"divergences max |kernel-plain| / max|logit| {worst_plain:.5f} (bound "
+        f"{LOGITS_RTOL_OF_MAX})")
+    if faults:
+        raise AssertionError(f"rows differ beyond the bound (check, request, output, diff, "
+                             f"diff or tol): {faults}")
+
+
+def check_write_drift(fused, rung) -> None:
+    """The two runs' stored logical bytes may differ only by the page
+    writes that ``retire`` cancelled: each run's stored kv_write bytes plus
+    its cancelled write bytes must equal the write bytes it queued, and
+    the queued bytes (set by the requests' lengths alone) must be equal."""
+    for name, (rep, ledger) in (("fused", fused), ("rung", rung)):
+        log(f"phase 3 [{name}]: engine_jobs_cancelled {rep['engine_jobs_cancelled']}, "
+            f"cancelled by class (jobs, logical bytes) {ledger['cancelled']}; write bytes "
+            f"queued {ledger['submitted_write_bytes']} = stored kv_logical_bytes "
+            f"{rep['kv_logical_bytes']} + cancelled {ledger['cancelled_write_bytes']}")
+        if rep["kv_logical_bytes"] + ledger["cancelled_write_bytes"] \
+                != ledger["submitted_write_bytes"]:
+            raise AssertionError(f"{name}: queued page writes are neither stored nor cancelled")
+    (f_rep, f_led), (r_rep, r_led) = fused, rung
+    if f_led["submitted_write_bytes"] != r_led["submitted_write_bytes"]:
+        raise AssertionError("the two runs queued different page-write bytes")
+    log(f"phase 3: kv_logical_bytes differ by "
+        f"{f_rep['kv_logical_bytes'] - r_rep['kv_logical_bytes']}, cancelled write bytes by "
+        f"{r_led['cancelled_write_bytes'] - f_led['cancelled_write_bytes']}: "
+        f"kv_logical_bytes + cancelled write bytes equal "
+        f"({f_rep['kv_logical_bytes'] + f_led['cancelled_write_bytes']})")
+
+
+def serve(torch, model, params, kernel: str, first=None) -> tuple:
+    """One main-path run: launch counts reset just before, read just after.
+    With ``first`` (request -> first divergent output of the two timed
+    runs) it is a check run, which repeats the timed run under a
+    ``DecodeWatch`` and a ``write_job_ledger`` (returned; None for a timed
+    run)."""
     from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.exp_delta import kernel as EK
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -629,15 +900,20 @@ def serve(torch, model, params, kernel: str) -> tuple:
     BK.reset_launches()
     FK.reset_launches()
     EK.reset_launches()
+    watch = ledger = None
     t0 = time.perf_counter()
-    for r in reqs:
-        sched.submit(r)
-    sched.run_until_drained()
-    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        if first is not None:
+            ledger = stack.enter_context(write_job_ledger())
+            watch = stack.enter_context(DecodeWatch(torch, model, sched, first))
+        for r in reqs:
+            sched.submit(r)
+        sched.run_until_drained()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**K.LAUNCHES, **BK.LAUNCHES, **FK.LAUNCHES, **EK.LAUNCHES}
+    rep = {**sched.report(), "engine_jobs_cancelled": sched.stats["engine_jobs_cancelled"]}
     encodes = sched.backend.page_encodes
-    rep = sched.report()
     if not all(r.done and not r.truncated and len(r.output) == r.max_new_tokens
                for r in reqs):
         raise AssertionError(f"{kernel}: not every request completed")
@@ -668,7 +944,8 @@ def serve(torch, model, params, kernel: str) -> tuple:
             f"{rep['kv_read_device_bytes']}")
     if not rep["device_bytes_read"] < rep["kv_fetch_logical"]:
         raise AssertionError("the ladder did not cut device reads below full precision")
-    log(f"phase 3 [{kernel}]: {len(reqs)} requests, {steps} decode steps, "
+    log(f"phase 3 [{kernel}{'' if first is None else ' check run, clock includes the check'}]: "
+        f"{len(reqs)} requests, {steps} decode steps, "
         f"{rep['prefill_chunks']} prefill chunks, launches {launches}, page transforms "
         f"{encodes}, decode {rep['decode_tokens']} tok in "
         f"{rep['decode_s']:.3f} s = {rep['decode_tok_per_s']:.1f} tok/s, "
@@ -677,7 +954,7 @@ def serve(torch, model, params, kernel: str) -> tuple:
         f"device_bytes_read {rep['device_bytes_read']}, kv_fetch_logical "
         f"{rep['kv_fetch_logical']}, kv_stored/logical "
         f"{rep['kv_stored_bytes']}/{rep['kv_logical_bytes']}")
-    return reqs, rep, launches
+    return reqs, rep, launches, watch, ledger
 
 
 @contextlib.contextmanager
@@ -1433,11 +1710,13 @@ def time_kernels(torch, cache, keeps, errs, launches) -> list:
     qd = q.reshape(B, HKV * REP, 1, HD)
     kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
     amask = (mask > 0)[:, None, None, :]
-    lib_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=amask))
+    sdpa = lambda i: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=amask)  # noqa: E731
+    lib_ms, lib_dev = cuda_time_ms(sdpa), device_ms(sdpa, "", 30)
 
     # fused: one launch per layer
-    f_ms = cuda_time_ms(lambda i: K.paged_attention_fused(
-        q, kps[i % n_layers], vps[i % n_layers], page_keeps, mask), iters=60)
+    fused = lambda i: K.paged_attention_fused(  # noqa: E731
+        q, kps[i % n_layers], vps[i % n_layers], page_keeps, mask)
+    f_ms, f_dev = cuda_time_ms(fused, iters=60), device_ms(fused, "paged_attention_kernel", 60)
     f_plain = cuda_time_ms(lambda i: R.paged_attention_fused_ref(
         q, kps[i % n_layers], vps[i % n_layers], page_keeps, mask), iters=10)
     f_bytes = kernel_bytes(page_keeps, mask, HKV, hd8) + small + page_keeps.numel() * 4 + out_b
@@ -1445,9 +1724,10 @@ def time_kernels(torch, cache, keeps, errs, launches) -> list:
 
     # rung: one launch per member of the rung set per layer; per-launch means
     masks = {k: (mask * (tok_keep == k)).to(torch.int8).contiguous() for k in keeps}
-    r_ms = cuda_time_ms(lambda i: [K.paged_attention_rung(
-        q, kps[i % n_layers], vps[i % n_layers], masks[k], keep=k) for k in keeps],
-        iters=30) / len(keeps)
+    rung = lambda i: [K.paged_attention_rung(  # noqa: E731
+        q, kps[i % n_layers], vps[i % n_layers], masks[k], keep=k) for k in keeps]
+    r_ms = cuda_time_ms(rung, iters=30) / len(keeps)
+    r_dev = device_ms(rung, "paged_attention_kernel", 30, len(keeps)) / len(keeps)
     r_plain = cuda_time_ms(lambda i: [R.paged_attention_rung_ref(
         q, kps[i % n_layers], vps[i % n_layers], masks[k], k) for k in keeps],
         iters=10) / len(keeps)
@@ -1456,26 +1736,29 @@ def time_kernels(torch, cache, keeps, errs, launches) -> list:
     r_bound, r_by = bound(r_bytes, flops / len(keeps))
     steps = {k: launches[k]["paged_attention_" + k] / launches["steps"][k]
              for k in ("fused", "rung")}
-    log(f"phase 6: fused {f_ms:.4f} ms/launch, {steps['fused']:.0f} launches per "
-        f"decode step (bound {f_bound:.5f} ms, {f_bytes} B), rung {r_ms:.4f} "
-        f"ms/launch, {steps['rung']:.0f} launches per decode step "
-        f"(bound {r_bound:.5f} ms), "
-        f"plain fused {f_plain:.4f} ms, plain rung {r_plain:.4f} ms, sdpa {lib_ms:.4f} ms; "
+    log(f"phase 6 (ms per launch, CUDA events / profiler device time): fused {f_ms:.4f} / "
+        f"{f_dev:.4f}, {steps['fused']:.0f} launches per decode step (bound {f_bound:.5f} "
+        f"ms, {f_bytes} B), rung {r_ms:.4f} / {r_dev:.4f}, {steps['rung']:.0f} launches "
+        f"per decode step (bound {r_bound:.5f} ms), plain fused {f_plain:.4f} ms, plain "
+        f"rung {r_plain:.4f} ms, sdpa {lib_ms:.4f} / {lib_dev:.4f}; device factor against "
+        f"sdpa: fused {f_dev / lib_dev:.2f}, rung {r_dev / lib_dev:.2f}; "
         f"valid tokens {int(mask.sum())}, plane map keeps {sorted(set(page_keeps.flatten().tolist()))}")
     src = "src/repro_torch/csrc/paged_attention.cu"
     return [
         {"name": "paged_attention_fused", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/paged_attention/kernel.py:274",
          "launches": launches["fused"]["paged_attention_fused"],
-         "max_abs_err": errs["paged_attention_fused"], "ms": f_ms,
+         "max_abs_err": errs["paged_attention_fused"], "ms": f_ms, "device_ms": f_dev,
          "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
-         "library_ms": lib_ms},
+         "library_ms": lib_ms, "library_device_ms": lib_dev,
+         "library": "scaled_dot_product_attention over the unpacked KV"},
         {"name": "paged_attention_rung", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/paged_attention/kernel.py:115",
          "launches": launches["rung"]["paged_attention_rung"],
-         "max_abs_err": errs["paged_attention_rung"], "ms": r_ms,
+         "max_abs_err": errs["paged_attention_rung"], "ms": r_ms, "device_ms": r_dev,
          "plain_ms": r_plain, "bound_ms": r_bound, "bound_by": r_by,
-         "library_ms": lib_ms},
+         "library_ms": lib_ms, "library_device_ms": lib_dev,
+         "library": "scaled_dot_product_attention over the unpacked KV"},
     ]
 
 
@@ -1491,16 +1774,14 @@ def time_bitplane_kernels(torch, dev, errs, serve_launches, per_step, prefill,
     """Pack at the decode token rows (one K or V row per slot, B=8), unpack
     at one slot's full cache per layer (what a prefill chunk unpacks, keep
     16, walking 160 distinct plane buffers so they come from HBM), and the
-    matmul at the quickstart's shape at keep 8 (its weight is warm, as in
-    the quickstart, which multiplies right after packing).  Each is timed
-    twice: CUDA events around back-to-back calls (``ms``; at these sizes
-    the host's issue time per call can exceed the kernel's) and the
-    profiler's device time of the kernel alone (``device_ms``)."""
+    matmul (``time_matmul``) at the quickstart's shape at keep 8 (warm) and
+    at the Zamba2-7B MLP up-projection, cold: M 8 at keep 16, 12, 8 and 4,
+    M 128 at keep 8.  Each is timed twice: CUDA events around back-to-back
+    calls (``ms``; at these sizes the host's issue time per call can exceed
+    the kernel's) and the profiler's device time of the kernels alone
+    (``device_ms``)."""
     from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.bitplane import ref as BR
-    from repro_torch.kernels.bitplane_matmul import kernel as MK
-    from repro_torch.kernels.bitplane_matmul import ops as MM
-    from repro_torch.kernels.bitplane_matmul import ref as MR
 
     gen = torch.Generator(device=dev).manual_seed(4)
     m_dec = B * HKV * HD
@@ -1523,27 +1804,27 @@ def time_bitplane_kernels(torch, dev, errs, serve_launches, per_step, prefill,
     u_plain, u_plain_dev = cuda_time_ms(unpack_plain, iters=20), device_ms(unpack_plain, "", 20)
     u_bound, u_by = bound_ms(BITS * m_slot // 8 + m_slot * 2, 0, BF16_TENSOR_FLOPS)
 
-    mm_m, mm_k, mm_n, keep = 8, 1024, 1024, 8
-    w = (torch.randn((mm_k, mm_n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
-    x = torch.randn((mm_m, mm_k), generator=gen, device=dev).to(torch.bfloat16)
-    planes = MM.pack_weights(w)
-    dense = MR.reconstruct_ref(planes, keep)
-    matmul = lambda i: MK.bitplane_matmul(x, planes, keep=keep)  # noqa: E731
-    matmul_plain = lambda i: MR.bitplane_matmul_ref(x, planes, keep)  # noqa: E731
-    matmul_lib = lambda i: torch.matmul(x, dense)  # noqa: E731
-    mm_ms, mm_dev = cuda_time_ms(matmul, iters=100), device_ms(matmul, "bitplane_matmul_kernel")
-    mm_plain, mm_plain_dev = cuda_time_ms(matmul_plain, iters=20), device_ms(matmul_plain, "", 20)
-    mm_lib, mm_lib_dev = cuda_time_ms(matmul_lib, iters=100), device_ms(matmul_lib)
-    mm_bytes = keep * mm_k * mm_n // 8 + mm_m * mm_k * 2 + mm_m * mm_n * 4
-    mm_bound, mm_by = bound_ms(mm_bytes, 2 * mm_m * mm_k * mm_n, BF16_TENSOR_FLOPS)
+    qs = time_matmul(torch, dev, gen, 8, 1024, 1024, (8,), warm=True)[0]
+    shapes = [row for m, k, n in ZAMBA_MLP
+              for row in time_matmul(torch, dev, gen, m, k, n, (16, 12, 8, 4) if m == 8 else (8,))]
+    by_keep = {r["keep"]: r for r in shapes if r["m"] == 8}
+    ratio = by_keep[16]["device_ms"] / by_keep[8]["device_ms"]
     log(f"phase 6 (ms per call, CUDA events / profiler device time): bitplane_pack "
         f"{p_ms:.4f} / {p_dev:.4f} at m={m_dec} (bound {p_bound:.6f}, plain "
         f"{p_plain:.4f} / {p_plain_dev:.4f}); bitplane_unpack {u_ms:.4f} / {u_dev:.4f} "
         f"at m={m_slot} keep 16 (bound {u_bound:.6f}, plain {u_plain:.4f} / "
-        f"{u_plain_dev:.4f}); bitplane_matmul {mm_ms:.4f} / {mm_dev:.4f} at "
-        f"({mm_m},{mm_k})x({mm_k},{mm_n}) keep {keep} (bound {mm_bound:.6f}, "
-        f"{mm_bytes} B; plain {mm_plain:.4f} / {mm_plain_dev:.4f}, torch.matmul over "
-        f"the dense bf16 weight {mm_lib:.4f} / {mm_lib_dev:.4f})")
+        f"{u_plain_dev:.4f})")
+    for r in [qs, *shapes]:
+        log(f"phase 6: bitplane_matmul ({r['m']},{r['k']})x({r['k']},{r['n']}) keep {r['keep']} "
+            f"{'warm' if r['warm'] else 'cold'}: {r['ms']:.4f} / {r['device_ms']:.4f} ms "
+            f"(events / device; plan {r['plan']}); bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']} ({r['bound_bytes']} B, {r['bound_flops']} bf16 operations), "
+            f"{r['bound_share']:.3f} of it; plain {r['plain_ms']:.4f} / "
+            f"{r['plain_device_ms']:.4f}; torch.matmul over the dense bf16 weight {r['library_ms']:.4f} / "
+            f"{r['library_device_ms']:.4f} (kernel / library by device "
+            f"{r['device_ms'] / r['library_device_ms']:.2f}); max abs err {r['max_abs_err']:.3g}")
+    log(f"phase 6: bitplane_matmul at M 8 on the Zamba2-7B MLP shape: device time keep 16 / "
+        f"keep 8 = {ratio:.3f}")
     src = "src/repro_torch/csrc/bitplane.cu"
     return [
         {"name": "bitplane_pack", "route": "cuda", "source": src,
@@ -1569,12 +1850,60 @@ def time_bitplane_kernels(torch, dev, errs, serve_launches, per_step, prefill,
          "replaces": "src/repro/kernels/bitplane_matmul/kernel.py:49",
          "launches": qs_launches["bitplane_matmul"],
          "launches_per_quickstart_run": qs_launches["bitplane_matmul"],
-         "max_abs_err": errs["bitplane_matmul"], "ms": mm_ms, "device_ms": mm_dev,
-         "plain_ms": mm_plain, "plain_device_ms": mm_plain_dev,
-         "bound_ms": mm_bound, "bound_by": mm_by, "library_ms": mm_lib,
-         "library_device_ms": mm_lib_dev,
-         "library": "torch.matmul (dense bf16 weight)"},
+         **{key: qs[key] for key in ("ms", "device_ms", "plain_ms", "plain_device_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "library_device_ms")},
+         "max_abs_err": max(errs["bitplane_matmul"], qs["max_abs_err"]),
+         "shape": [qs["m"], qs["k"], qs["n"]], "keep": qs["keep"],
+         "library": "torch.matmul (dense bf16 weight)",
+         "shapes": shapes, "zamba2_mlp_m8_keep16_over_keep8": ratio},
     ]
+
+
+def time_matmul(torch, dev, gen, m: int, k: int, n: int, keeps, warm: bool = False) -> list:
+    """The bit-plane matmul at x (m, k) x W (k, n), one row per keep: CUDA
+    events around back-to-back calls and the profiler's device time (the
+    product kernel and, when K is split, the kernel that adds the splits),
+    beside the bound, the plain version and torch.matmul over the dense
+    bf16 weight.  Cold (``warm`` False): the calls rotate over three
+    weights, each stored both as planes and as dense bf16 (103 MB of bf16
+    at the Zamba2-7B MLP shape, so a kept-plane read finds nothing in the
+    50 MB L2); warm: one weight, as the quickstart multiplies right after
+    packing."""
+    from repro_torch.kernels.bitplane_matmul import kernel as MK
+    from repro_torch.kernels.bitplane_matmul import ops as MM
+    from repro_torch.kernels.bitplane_matmul import ref as MR
+
+    nbuf = 1 if warm else 3
+    dense = [(torch.randn((k, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+             for _ in range(nbuf)]
+    planes = [MM.pack_weights(w) for w in dense]
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    lib = lambda i: torch.matmul(x, dense[i % nbuf])  # noqa: E731
+    lib_ms, lib_dev = cuda_time_ms(lib, iters=30), device_ms(lib, "", 30)
+    rows = []
+    for keep in keeps:
+        plan = MK.plan(m, k, n, keep)
+        run = lambda i: MK.bitplane_matmul(x, planes[i % nbuf], keep=keep)  # noqa: E731
+        plain = lambda i: MR.bitplane_matmul_ref(x, planes[i % nbuf], keep)  # noqa: E731
+        err = float((run(0) - plain(0)).abs().max())
+        torch.testing.assert_close(run(0), plain(0), atol=MATMUL_ATOL, rtol=MATMUL_RTOL)
+        k_ms = cuda_time_ms(run, iters=30)
+        k_dev = device_ms(run, "bitplane_matmul", 30, 2 if plan["splits"] > 1 else 1)
+        p_ms, p_dev = cuda_time_ms(plain, iters=2, warmup=1), device_ms(plain, "", 2)
+        nbytes = keep * k * n // 8 + 2 * m * k + 4 * m * n
+        flops = 2 * m * k * n
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+        rows.append({"m": m, "k": k, "n": n, "keep": keep, "warm": warm, "plan": plan,
+                     "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms,
+                     "plain_device_ms": p_dev, "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_bytes": nbytes, "bound_flops": flops,
+                     "bound_share": b_ms / k_dev,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev,
+                     "max_abs_err": err})
+    del dense, planes
+    torch.cuda.empty_cache()
+    return rows
 
 
 def time_exp_delta_kernels(torch, span, errs, serve_launches, per_step, rt) -> list:
@@ -1777,13 +2106,23 @@ def main() -> int:
     cfg = get_config("smollm-135m")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
-    fused_reqs, fused_rep, fused_launches = serve(torch, model, params, "fused")
-    rung_reqs, rung_rep, rung_launches = serve(torch, model, params, "rung")
+    fused_reqs, fused_rep, fused_launches, _, _ = serve(torch, model, params, "fused")
+    rung_reqs, rung_rep, rung_launches, _, _ = serve(torch, model, params, "rung")
     same = sum(a == b for fr, rr in zip(fused_reqs, rung_reqs)
                for a, b in zip(fr.output, rr.output))
     total = sum(len(r.output) for r in fused_reqs)
     log(f"phase 3: fused and rung runs agree on {same}/{total} greedy tokens "
         f"({same / total:.3f})")
+    first = first_divergences(fused_reqs, rung_reqs)
+    checks = {}
+    for kernel, timed in (("fused", (fused_reqs, fused_rep)), ("rung", (rung_reqs, rung_rep))):
+        c_reqs, c_rep, _, watch, ledger = serve(torch, model, params, kernel, first)
+        check_repeat(kernel, timed, (c_reqs, c_rep))
+        checks[kernel] = (c_rep, ledger, watch)
+    check_fused_against_rung(torch, fused_reqs, rung_reqs, first, checks["fused"][2],
+                             checks["rung"][2])
+    check_write_drift(checks["fused"][:2], checks["rung"][:2])
+    del checks
     per_step = profile_decode(torch, model, params)
     cache, tok, keeps = snapshot(torch, model, params)
     prefill = prefill_chunk_launches(torch, model, params, cache)

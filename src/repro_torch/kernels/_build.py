@@ -39,25 +39,26 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(source: str) -> Path:
-    """Where ``csrc/<source>`` builds to under the current flags."""
+def library_path(source: str, extra: tuple = ()) -> Path:
+    """Where ``csrc/<source>`` builds to under the current flags (and
+    ``extra`` ones)."""
     src = CSRC / source
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS + extra).encode())
     return BUILD_DIR / f"{src.stem}_{key.hexdigest()[:16]}.so"
 
 
-def build(source: str) -> tuple[Path, str]:
-    """Compile ``csrc/<source>`` unless this source and these flags were
-    already built; returns the library path and the compiler's log (the
-    register and shared-memory report of ``-Xptxas -v``; empty when
-    cached)."""
-    out = library_path(source)
+def build(source: str, extra: tuple = ()) -> tuple[Path, str]:
+    """Compile ``csrc/<source>`` unless this source and these flags (with
+    ``extra`` ones, such as a ``-D`` define) were already built; returns
+    the library path and the compiler's log (the register and
+    shared-memory report of ``-Xptxas -v``; empty when cached)."""
+    out = library_path(source, extra)
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+        [find_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
@@ -67,9 +68,10 @@ def build(source: str) -> tuple[Path, str]:
 
 
 @functools.cache
-def load(source: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<source>`` (built on the first call)."""
-    path, _ = build(source)
+def load(source: str, extra: tuple = ()) -> ctypes.CDLL:
+    """The built library of ``csrc/<source>`` (built on the first call),
+    with ``extra`` flags."""
+    path, _ = build(source, extra)
     return ctypes.CDLL(str(path))
 
 

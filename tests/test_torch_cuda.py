@@ -7,8 +7,9 @@ it runs on the GPU host:
 
 Tolerances: pack and unpack move bits and must match bit for bit.  The
 matmul takes exact bf16 x bf16 products in float32 on both sides; the
-kernel sums them in K order and the plain version through cuBLAS in an
-order of its own, so it is held to atol = rtol = 1e-4.  The SSD scan is
+kernel sums them on the tensor cores, 16 rows of K at a time within each
+split of K and then the splits in order, the plain version through cuBLAS
+in an order of its own, so it is held to atol = rtol = 1e-4.  The SSD scan is
 float32 on both sides and differs only in the order of its sums: it is held
 to 1e-4 of the largest output (about 1e-5 measured at full width).  Flash
 attention rounds p to bf16 at the running max of its 64-key tiles, the plain
@@ -70,16 +71,21 @@ def test_cuda_pack_unpack_match_plain_on_card(m, bits):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(8, 576, 576), (128, 576, 192), (8, 576, 1536),
-                                   (128, 1536, 576), (8, 1024, 1024), (5, 100, 24)])
+                                   (128, 1536, 576), (8, 1024, 1024), (5, 100, 24),
+                                   (8, 3584, 14336), (128, 3584, 14336), (64, 1024, 1024),
+                                   (16, 1024, 1024), (8, 1000, 1024), (200, 520, 1032)])
 def test_cuda_bitplane_matmul_matches_plain_on_card(m, k, n):
-    """Full-width SmolLM-135M projections, the quickstart's shape, and a
-    ragged one (M, K, N not multiples of the kernel's tiles)."""
+    """Full-width SmolLM-135M projections, the quickstart's shape, the
+    Zamba2-7B MLP up-projection at M 8 and 128, M 64 and 16 (x slabs of 64
+    and 16 rows), K that the split does not divide (1000, 520), and ragged
+    ones (M, K, N not multiples of the kernel's tiles; N % 128 != 0 or
+    K % 8 != 0 take the plain loads); every keep from 16 down to 1 and 0."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(m * k + n)
     w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
     x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     planes = MM.pack_weights(w)
-    for keep in (16, 12, 8, 4):
+    for keep in (16, 12, 8, 4, 1, 0):
         got = MK.bitplane_matmul(x, planes, keep=keep)
         torch.testing.assert_close(got, MR.bitplane_matmul_ref(x, planes, keep),
                                    atol=MATMUL_TOL, rtol=MATMUL_TOL)
