@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
 2. Each kernel against its plain PyTorch version on the card.  Paged
    attention at the serving shapes of full-width SmolLM-135M (B=8,
    S=1024, Hkv=3, rep=3, hd=64): mixed plane counts {8, 12, 16} with
-   keep-0 pages, ragged valid lengths and one row with nothing valid.
+   keep-0 pages, ragged valid lengths and one row with nothing valid; and
+   at Yi-9B's head shape (B=2, S=4096, Hkv=4, rep=8, hd=128): keeps {0, 4,
+   8, 16}, one row with nothing valid.
    Pack and unpack bit for bit at the decode token rows, one slot's full
    cache per layer (keep 16, 12, 8, 4) and an odd length; the bit-plane
    matmul at the quickstart's shape and every SmolLM-135M projection; the
@@ -92,7 +94,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    computes the same function (device time too for the paged rows and the
    matmul), printed as one ``{"kernels": [...]}`` line (nine rows: every
    kernel of the port; the matmul row carries its Zamba2-7B MLP rows, cold,
-   under ``shapes``).
+   under ``shapes``; each paged row its long, cold decode rows: B 8, S 4096
+   at Yi-9B's head shape, every page at keep 16, 8 and 4, beside SDPA with
+   ``enable_gqa`` over the dense bf16 cache).  A paged-attention call
+   launches the attention kernel and, when S is split, the kernel that
+   merges the splits; the device times cover both.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -351,25 +357,36 @@ def device_ms(fn, match: str = "", iters: int = 50, per_call: int = 1) -> float:
     return sum(e.self_device_time_total for e in rows) / iters / 1e3
 
 
-def random_case(torch, dev, gen):
-    """Kernel inputs at the serving shapes: packed planes of random bf16 KV,
-    mixed keeps {8, 12, 16} with keep-0 pages, ragged valid lengths, and
-    row 3 with nothing valid."""
+def random_case(torch, dev, gen, shape=(B, S, HKV, REP, HD), choices=(0, 8, 12, 16, 16),
+                valid=(1024, 700, 333, 0, 17, 1000, 512, 64)):
+    """Kernel inputs: packed planes of random bf16 KV, keeps drawn from
+    ``choices`` (0: a page never read), the valid lengths ``valid`` (a 0 is
+    a row with nothing valid).  The default is the serving shape: keeps {8,
+    12, 16} with keep-0 pages, ragged lengths, row 3 with nothing valid."""
     from repro_torch.kernels.paged_attention.ref import pack_kv_ref
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    b, s, hkv, rep, hd = shape
 
-    q = randn(B, HKV, REP, HD)
-    kp = pack_kv_ref(randn(B, S, HKV, HD))
-    vp = pack_kv_ref(randn(B, S, HKV, HD))
-    choice = torch.tensor([0, 8, 12, 16, 16], device=dev, dtype=torch.int32)
-    keeps = choice[torch.randint(0, 5, (B, S // 16), generator=gen, device=dev)]
-    valid = torch.tensor([1024, 700, 333, 0, 17, 1000, 512, 64], device=dev)
+    def randn(*sh):
+        return torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+
+    q = randn(b, hkv, rep, hd)
+    kp = pack_kv_ref(randn(b, s, hkv, hd))
+    vp = pack_kv_ref(randn(b, s, hkv, hd))
+    choice = torch.tensor(choices, device=dev, dtype=torch.int32)
+    keeps = choice[torch.randint(0, len(choices), (b, s // 16), generator=gen, device=dev)]
+    lens = torch.tensor(valid, device=dev)
     tok_keep = keeps.repeat_interleave(16, dim=1)
-    ok = torch.arange(S, device=dev)[None] < valid[:, None]
+    ok = torch.arange(s, device=dev)[None] < lens[:, None]
     mask = (ok & (tok_keep > 0)).to(torch.int8).contiguous()
     return q, kp, vp, keeps.contiguous(), mask, tok_keep
+
+
+# Phase 2's second paged-attention case: Yi-9B's head shape (Hkv 4, rep 8,
+# hd 128; src/repro/configs/yi_9b.py) at B 2, S 4096, keeps {0, 4, 8, 16},
+# row 1 with nothing valid
+YI_HEADS = (4, 8, 128)
+YI_CASE = ((2, 4096) + YI_HEADS, (0, 4, 8, 16), (4096, 0))
 
 
 def check_rung_partials(torch, got, want) -> None:
@@ -387,22 +404,41 @@ def check_rung_partials(torch, got, want) -> None:
 
 
 def check_kernels(torch, dev) -> dict:
+    """Both paged-attention kernels against their plain versions at the
+    serving shape and at YI_CASE (tolerances KERNEL_ATOL / RTOL); the rows
+    with nothing valid must come out exactly 0."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    errs = {"paged_attention_fused": 0.0, "paged_attention_rung": 0.0}
+    cases = [("serving", random_case(torch, dev, gen), 3, (8, 12, 16)),
+             ("yi-9b heads", random_case(torch, dev, gen, *YI_CASE), 1, (4, 8, 16))]
+    for what, case, empty, rungs in cases:
+        fused, rung = check_paged_case(torch, case, empty, rungs)
+        errs["paged_attention_fused"] = max(errs["paged_attention_fused"], fused)
+        errs["paged_attention_rung"] = max(errs["paged_attention_rung"], rung)
+        log(f"phase 2: paged attention ({what}, B S Hkv rep hd = "
+            f"{tuple(case[0].shape[:1]) + (case[1].shape[2],) + tuple(case[0].shape[1:])}) "
+            f"matches plain on the card; max abs err fused {fused:.3g}, rung {rung:.3g}")
+    return errs
+
+
+def check_paged_case(torch, case, empty: int, rungs) -> tuple:
+    """One case through both kernels and their plain versions: fused
+    output, each rung's partials (``check_rung_partials``) and their merge,
+    which must also match the fused output; row ``empty`` exactly 0.
+    Returns the max abs errors (fused, rung)."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ops as O
     from repro_torch.kernels.paged_attention import ref as R
 
-    gen = torch.Generator(device=dev).manual_seed(1)
-    q, kp, vp, keeps, mask, tok_keep = random_case(torch, dev, gen)
-    errs = {}
+    q, kp, vp, keeps, mask, tok_keep = case
     got = K.paged_attention_fused(q, kp, vp, keeps, mask)
     want = R.paged_attention_fused_ref(q, kp, vp, keeps, mask)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-    if not (torch.all(got[3] == 0) and torch.all(want[3] == 0)):
+    if not (torch.all(got[empty] == 0) and torch.all(want[empty] == 0)):
         raise AssertionError("fused: the row with nothing valid is not exactly 0")
-    errs["paged_attention_fused"] = float((got - want).abs().max())
     parts_k, parts_r = [], []
-    for keep in (8, 12, 16):
+    for keep in rungs:
         mk = (mask * (tok_keep == keep)).to(torch.int8).contiguous()
         pk = K.paged_attention_rung(q, kp, vp, mk, keep=keep)
         pr = R.paged_attention_rung_ref(q, kp, vp, mk, keep)
@@ -414,15 +450,14 @@ def check_kernels(torch, dev) -> dict:
     merged_r = O.merge_rung_partials(parts_r)
     torch.testing.assert_close(merged_k, merged_r, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
     torch.testing.assert_close(merged_k, got, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-    if not torch.all(merged_k[3] == 0):
+    if not torch.all(merged_k[empty] == 0):
         raise AssertionError("rung: the row with nothing valid is not exactly 0")
-    errs["paged_attention_rung"] = max(
+    rung_err = max(
         float((merged_k - merged_r).abs().max()),
         *(float((a[0] / a[2].clamp(min=1e-30)[..., None]
                  - w[0] / w[2].clamp(min=1e-30)[..., None]).abs().max())
           for a, w in zip(parts_k, parts_r)))
-    log(f"phase 2: kernels match plain on the card; max abs err {errs}")
-    return errs
+    return float((got - want).abs().max()), rung_err
 
 
 def check_bitplane_kernels(torch, dev) -> dict:
@@ -1677,7 +1712,8 @@ def kernel_bytes(cache_keeps, mask, hkv, hd8, page_keep_filter=None) -> int:
 def time_kernels(torch, cache, keeps, errs, launches) -> list:
     """Time both kernels on the serving snapshot's own planes, plane map and
     lengths, walking the 30 layers so each launch reads planes that are not
-    in L2 (the real caller's case)."""
+    in L2 (the real caller's case); then at the long, cold shape
+    (``time_long_paged``), whose rows go under each kernel's ``shapes``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention import kernel as K
@@ -1713,10 +1749,14 @@ def time_kernels(torch, cache, keeps, errs, launches) -> list:
     sdpa = lambda i: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=amask)  # noqa: E731
     lib_ms, lib_dev = cuda_time_ms(sdpa), device_ms(sdpa, "", 30)
 
-    # fused: one launch per layer
+    # fused: one call per layer; a call launches the attention kernel and,
+    # when S is split, the kernel that merges the splits (both named
+    # paged_attention_*)
+    per_call = 2 if K.plan(B, S, HKV, REP, HD)["splits"] > 1 else 1
     fused = lambda i: K.paged_attention_fused(  # noqa: E731
         q, kps[i % n_layers], vps[i % n_layers], page_keeps, mask)
-    f_ms, f_dev = cuda_time_ms(fused, iters=60), device_ms(fused, "paged_attention_kernel", 60)
+    f_ms, f_dev = cuda_time_ms(fused, iters=60), device_ms(fused, "paged_attention_", 60,
+                                                           per_call)
     f_plain = cuda_time_ms(lambda i: R.paged_attention_fused_ref(
         q, kps[i % n_layers], vps[i % n_layers], page_keeps, mask), iters=10)
     f_bytes = kernel_bytes(page_keeps, mask, HKV, hd8) + small + page_keeps.numel() * 4 + out_b
@@ -1727,7 +1767,7 @@ def time_kernels(torch, cache, keeps, errs, launches) -> list:
     rung = lambda i: [K.paged_attention_rung(  # noqa: E731
         q, kps[i % n_layers], vps[i % n_layers], masks[k], keep=k) for k in keeps]
     r_ms = cuda_time_ms(rung, iters=30) / len(keeps)
-    r_dev = device_ms(rung, "paged_attention_kernel", 30, len(keeps)) / len(keeps)
+    r_dev = device_ms(rung, "paged_attention_", 30, per_call * len(keeps)) / len(keeps)
     r_plain = cuda_time_ms(lambda i: [R.paged_attention_rung_ref(
         q, kps[i % n_layers], vps[i % n_layers], masks[k], k) for k in keeps],
         iters=10) / len(keeps)
@@ -1743,6 +1783,7 @@ def time_kernels(torch, cache, keeps, errs, launches) -> list:
         f"rung {r_plain:.4f} ms, sdpa {lib_ms:.4f} / {lib_dev:.4f}; device factor against "
         f"sdpa: fused {f_dev / lib_dev:.2f}, rung {r_dev / lib_dev:.2f}; "
         f"valid tokens {int(mask.sum())}, plane map keeps {sorted(set(page_keeps.flatten().tolist()))}")
+    long_rows = time_long_paged(torch, dev)
     src = "src/repro_torch/csrc/paged_attention.cu"
     return [
         {"name": "paged_attention_fused", "route": "cuda", "source": src,
@@ -1751,15 +1792,94 @@ def time_kernels(torch, cache, keeps, errs, launches) -> list:
          "max_abs_err": errs["paged_attention_fused"], "ms": f_ms, "device_ms": f_dev,
          "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
          "library_ms": lib_ms, "library_device_ms": lib_dev,
-         "library": "scaled_dot_product_attention over the unpacked KV"},
+         "library": "scaled_dot_product_attention over the unpacked KV",
+         "shapes": [r for r in long_rows if r["kernel"] == "fused"]},
         {"name": "paged_attention_rung", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/paged_attention/kernel.py:115",
          "launches": launches["rung"]["paged_attention_rung"],
          "max_abs_err": errs["paged_attention_rung"], "ms": r_ms, "device_ms": r_dev,
          "plain_ms": r_plain, "bound_ms": r_bound, "bound_by": r_by,
          "library_ms": lib_ms, "library_device_ms": lib_dev,
-         "library": "scaled_dot_product_attention over the unpacked KV"},
+         "library": "scaled_dot_product_attention over the unpacked KV",
+         "shapes": [r for r in long_rows if r["kernel"] == "rung"]},
     ]
+
+
+# Phase 6's long, cold decode shape: B 8, S 4096, every token valid, Yi-9B's
+# head shape; LONG_LAYERS layers of planes (and of dense bf16 K/V for SDPA)
+# rotated, 268 MB of each, so every call finds its planes outside the 50 MB
+# L2, as a decode step through a deep model would
+LONG_SHAPE = (8, 4096) + YI_HEADS
+LONG_LAYERS = 4
+
+
+def time_long_paged(torch, dev) -> list:
+    """Both kernels at LONG_SHAPE with every page at keep 16, 8 and 4, cold:
+    device time (profiler; the attention and merge kernels) and CUDA-event
+    time per call, the bytes a call must move (the kept planes, q, mask,
+    plane map, output), the byte bound and the share of it, beside
+    ``scaled_dot_product_attention(q, k, v, enable_gqa=True)`` over the same
+    layers' dense bf16 K/V (twice the bytes of keep 8).  Each keep is first
+    held to the plain version on one layer (KERNEL_ATOL / RTOL)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention import ref as R
+    from repro_torch.kernels.paged_attention.ref import pack_kv_ref
+
+    b, s, hkv, rep, hd = LONG_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((b, hkv, rep, hd), generator=gen, device=dev).to(torch.bfloat16)
+    dense, planes = [], []
+    for _ in range(LONG_LAYERS):
+        k = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+        planes.append((pack_kv_ref(k), pack_kv_ref(v)))
+        dense.append((k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()))
+        del k, v
+    mask = torch.ones((b, s), dtype=torch.int8, device=dev)
+    qd = q.reshape(b, hkv * rep, 1, hd)
+    sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        qd, dense[i % LONG_LAYERS][0], dense[i % LONG_LAYERS][1], enable_gqa=True)
+    lib_ms, lib_dev = cuda_time_ms(sdpa, iters=40), device_ms(sdpa, "", 40)
+    plan = K.plan(b, s, hkv, rep, hd)
+    per_call = 2 if plan["splits"] > 1 else 1
+    rows = []
+    for keep in (16, 8, 4):
+        page_keeps = torch.full((b, s // 16), keep, dtype=torch.int32, device=dev)
+        calls = {
+            "fused": lambda i: K.paged_attention_fused(
+                q, *planes[i % LONG_LAYERS], page_keeps, mask),
+            "rung": lambda i: K.paged_attention_rung(
+                q, *planes[i % LONG_LAYERS], mask, keep=keep)}
+        fused_err = float((calls["fused"](0) - R.paged_attention_fused_ref(
+            q, *planes[0], page_keeps, mask)).abs().max())
+        torch.testing.assert_close(calls["fused"](0), R.paged_attention_fused_ref(
+            q, *planes[0], page_keeps, mask), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+        check_rung_partials(torch, calls["rung"](0),
+                            R.paged_attention_rung_ref(q, *planes[0], mask, keep))
+        small = q.numel() * 2 + mask.numel() + b * hkv * rep * hd * 4
+        for kernel, fn in calls.items():
+            nbytes = kernel_bytes(page_keeps, mask, hkv, hd // 8) + small + (
+                page_keeps.numel() * 4 if kernel == "fused" else 2 * b * hkv * rep * 4)
+            k_ms = cuda_time_ms(fn, iters=40)
+            k_dev = device_ms(fn, "paged_attention_", 40, per_call)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append({"kernel": kernel, "shape": list(LONG_SHAPE), "keep": keep,
+                         "layers": LONG_LAYERS, "plan": plan, "ms": k_ms, "device_ms": k_dev,
+                         "bytes": nbytes, "bound_ms": b_ms, "bound_by": "bytes",
+                         "bound_share": b_ms / k_dev, "sdpa_ms": lib_ms,
+                         "sdpa_device_ms": lib_dev, "over_sdpa": k_dev / lib_dev,
+                         "max_abs_err": fused_err if kernel == "fused" else None})
+            log(f"phase 6: paged_attention_{kernel} B S Hkv rep hd = {LONG_SHAPE}, every "
+                f"page at keep {keep}, cold ({LONG_LAYERS} layers): {k_ms:.4f} / "
+                f"{k_dev:.4f} ms (events / device, {per_call} kernels a call; plan {plan}); "
+                f"{nbytes} B, byte bound {b_ms:.5f} ms, {b_ms / k_dev:.3f} of it; sdpa "
+                f"enable_gqa over dense bf16 {lib_ms:.4f} / {lib_dev:.4f} "
+                f"(kernel / sdpa by device {k_dev / lib_dev:.3f})")
+    del dense, planes
+    torch.cuda.empty_cache()
+    return rows
 
 
 def bound_ms(nbytes: float, nflops: float, flops_per_s: float) -> tuple:
