@@ -28,8 +28,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    H=64, P=64, N=128, Q=256) with a nonzero initial state and realistic
    dt·A, at a ragged L=1000 and at L=37 (below one chunk); flash attention
    at the full-width Zamba2-7B prefill shape (B=2, L=4096, 32 heads of
-   112, causal), at SmolLM-135M prefill chunks (64 and 512 rows at offsets
-   0 and 448 over 1024 slot rows, 9 q / 3 kv heads of 64), at a ragged
+   112, causal), at SmolLM-135M prefill chunks (64 rows at offsets 0, 448
+   and 960, the last with its keys split and merged, and 512 rows at
+   offsets 0 and 448, over 1024 slot rows, 9 q / 3 kv heads of 64), at a ragged
    L=1000, with a 64-key window and bidirectional with kv_valid < Skv.
    Exponent-delta encode and decode bit for bit at a 512-token serving
    span (4 stored layers x 2 streams x 32 pages of 192 channels), a decode
@@ -96,15 +97,21 @@ Phases (any failure exits non-zero; no phase's error is caught):
    kernel of the port; the matmul row carries its Zamba2-7B MLP rows, cold,
    under ``shapes``; each paged row its long, cold decode rows: B 8, S 4096
    at Yi-9B's head shape, every page at keep 16, 8 and 4, beside SDPA with
-   ``enable_gqa`` over the dense bf16 cache).  A paged-attention call
-   launches the attention kernel and, when S is split, the kernel that
-   merges the splits; the device times cover both.
+   ``enable_gqa`` over the dense bf16 cache; the flash row its SmolLM
+   prefill chunks, 64 rows at offsets 0 and 960 and 512 rows at offset
+   448 with 960 valid keys, beside SDPA over the valid keys with a boolean
+   mask, named by the backend it took, and under ``serving_mix`` the
+   prefill chunks of phase 3's run, each timed as the launch plan splits
+   it and with its keys not split).  A paged-attention or flash call
+   launches the attention kernel and, when its keys are split, the kernel
+   that merges the splits; the device times cover both.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -206,12 +213,16 @@ FLASH_BF16_STEPS = 2
 SHARED_BLOCK_STEPS = 4
 # Flash cases (b, sq, skv, hp, hkv, hd, start, kv_valid, causal, window):
 # the Zamba2-7B prefill first (its inputs are timed in phase 6), SmolLM
-# prefill chunks into a 1024-row slot, a ragged L, a window, and
-# bidirectional with kv_valid < Skv
+# prefill chunks into a 1024-row slot and one at the end of a 4096-row
+# cache (kv_valid passed as the int a prefill chunk passes, so the plan
+# splits all of them but the first over the keys below it, and merges),
+# a ragged L, a window, and bidirectional with kv_valid < Skv
 FLASH_CASES = (
     (ZAMBA_B, ZAMBA_L, ZAMBA_L, 32, 32, 112, 0, ZAMBA_L, True, 0),
     (1, 64, S, 9, 3, HD, 0, 64, True, 0),
     (1, 64, S, 9, 3, HD, 448, 512, True, 0),
+    (1, 64, S, 9, 3, HD, 960, S, True, 0),
+    (1, 64, 4 * S, 9, 3, HD, 4 * S - 64, 4 * S, True, 0),
     (1, 512, S, 9, 3, HD, 0, 512, True, 0),
     (1, 512, S, 9, 3, HD, 448, 960, True, 0),
     (ZAMBA_B, 1000, 1000, 32, 32, 112, 0, 1000, True, 0),
@@ -561,7 +572,7 @@ def check_flash_kernel(torch, dev) -> tuple:
         pos = (start + torch.arange(sq, device=dev, dtype=torch.int32))[None].expand(b, sq)
         pos = pos.contiguous()
         kv_valid = torch.full((b,), valid, dtype=torch.int32, device=dev)
-        got = FO.flash_attention(q, k, v, q_pos=pos, kv_valid=kv_valid, causal=causal,
+        got = FO.flash_attention(q, k, v, q_pos=pos, kv_valid=valid, causal=causal,
                                  window=window)
         want = FR.flash_attention_ref(q, k, v, q_pos=pos, kv_valid=kv_valid,
                                       causal=causal, window=window)
@@ -1564,7 +1575,9 @@ def run_zamba(torch, dev) -> dict:
                                {"flash_attention_kernel": n_attn, "ssd_kernel": n_mamba})
     rows = [(e.self_device_time_total, e.key) for e in prefill_rows]
     busy_ms = sum(t for t, _ in rows) / 1e3
-    flash_ms = sum(t for t, k in rows if "flash_attention_kernel" in k) / 1e3
+    # a flash call launches its attention kernel and, when its keys are
+    # split, the merge kernel: both are named flash_attention_*
+    flash_ms = sum(t for t, k in rows if "flash_attention_" in k) / 1e3
     ssd_ms = sum(t for t, k in rows if "ssd_kernel" in k) / 1e3
     n_rec = {name: sum(e.count for e in prefill_rows if name in e.key)
              for name in ("flash_attention_kernel", "ssd_kernel")}
@@ -2144,12 +2157,177 @@ def flash_work(pos, kv_valid, hp: int, hd: int, causal: bool, window: int) -> in
     return 4 * hd * hp * pairs
 
 
+def kernels_per_call(fn, match: str) -> int:
+    """Kernels whose name holds ``match`` that one call of ``fn(0)``
+    launches, as a profiler window over that one call records them (a
+    flash call launches its attention kernel and, when its keys are split,
+    the merge kernel)."""
+    fn(0)
+    rows = device_rows(lambda: fn(0), f"one call ({match})")
+    n = sum(e.count for e in rows if match in e.key)
+    if n <= 0:
+        raise AssertionError(f"one call launched no {match} kernel")
+    return n
+
+
+# Phase 6's SmolLM-135M prefill chunks (9 q / 3 kv heads of 64), (sq, skv,
+# start, kv_valid): into a 1024-row slot the first chunk (not split), the
+# last one and a 512-row chunk at an offset with valid below the slot; and
+# a chunk at the end of a 4096-row cache (the plan splits the last three)
+FLASH_CHUNKS = ((64, S, 0, 64), (64, S, 960, S), (512, S, 448, 960),
+                (64, 4 * S, 4 * S - 64, 4 * S))
+
+
+def sdpa_backend(names) -> str:
+    """The SDPA backend a call took, from its device kernels' names."""
+    text = " ".join(names).lower()
+    for key, name in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
+                      ("mem_eff", "efficient"), ("cutlass", "efficient")):
+        if key in text:
+            return name
+    return "math"
+
+
+def time_flash_chunks(torch, dev) -> list:
+    """The flash kernel at FLASH_CHUNKS (warm: a chunk's K and V, 0.79 MB,
+    stay in L2, as between a prefill's layers they would not, but each
+    call lasts microseconds and its fixed cost is what these rows show): device
+    time of every kernel of a call and CUDA-event time, the bound, and
+    scaled_dot_product_attention over k[:, :valid] (k and v repeated to the
+    query heads) with a boolean mask, named by the backend it took."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    hp, hkv, hd = 9, 3, HD
+    out = []
+    for sq, skv, start, valid in FLASH_CHUNKS:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+        q, k, v = randn(1, sq, hp, hd), randn(1, skv, hkv, hd), randn(1, skv, hkv, hd)
+        pos = (start + torch.arange(sq, device=dev, dtype=torch.int32))[None].contiguous()
+        kv_valid = torch.full((1,), valid, dtype=torch.int32, device=dev)
+        run = lambda i: FK.flash_attention(q, k, v, pos, kv_valid, causal=True, window=0,  # noqa: E731,B023
+                                           valid=valid)
+        per_call = kernels_per_call(run, "flash_attention_")
+        k_ms = cuda_time_ms(run, iters=200)
+        k_dev = device_ms(run, "flash_attention_", 100, per_call)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t[:, :valid].repeat_interleave(hp // hkv, dim=2).transpose(1, 2).contiguous()
+                  for t in (k, v))
+        amask = torch.arange(valid, device=dev)[None, :] <= pos[0, :, None]
+        lib = lambda i: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)  # noqa: E731,B023
+        lib(0)
+        lib_names = sorted({e.key for e in device_rows(lambda: lib(0), "one SDPA call")})
+        lib_ms, lib_dev = cuda_time_ms(lib, iters=200), device_ms(lib, "", 100)
+        flops = flash_work(pos, kv_valid, hp, hd, causal=True, window=0)
+        nbytes = 2 * (2 * q.numel() + 2 * valid * hkv * hd)
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+        backend = sdpa_backend(lib_names)
+        log(f"phase 6: flash_attention chunk Sq={sq} start={start} kv_valid={valid} "
+            f"(Skv {skv}, 9 q / 3 kv heads of {hd}): {k_ms:.4f} / {k_dev:.4f} ms (events / "
+            f"device, {per_call} kernels a call); bound {b_ms:.6f} ms by {b_by}; SDPA "
+            f"({backend}: {'; '.join(n[:60] for n in lib_names)}) {lib_ms:.4f} / "
+            f"{lib_dev:.4f} ms; device factor {k_dev / lib_dev:.2f}")
+        out.append({"shape": [1, sq, skv, hp, hkv, hd], "start": start, "kv_valid": valid,
+                    "kernels_per_call": per_call, "ms": k_ms, "device_ms": k_dev,
+                    "bound_ms": b_ms, "bound_by": b_by, "bound_flops": flops,
+                    "bound_bytes": nbytes, "library_ms": lib_ms,
+                    "library_device_ms": lib_dev, "library_backend": backend})
+    return out
+
+
+def serving_chunks() -> collections.Counter:
+    """(bucket, start, end) of every prefill chunk of phase 3's serving run,
+    counted: its requests cut as the scheduler cuts them (the largest
+    bucket that fits, the smallest one padded for a ragged tail)."""
+    from repro_torch.serving.scheduler import next_chunk, prefill_buckets
+
+    buckets = prefill_buckets(S)
+    chunks = collections.Counter()
+    for req in make_requests():
+        n, start = len(req.prompt), 0
+        while start < n:
+            bucket, real = next_chunk(n - start, buckets)
+            chunks[(bucket, start, start + real)] += 1
+            start += real
+    return chunks
+
+
+def flash_unsplit(torch, q, k, v, pos, kv_valid):
+    """One flash launch with its keys not split (one range of every key
+    tile), the call the wrapper makes when the plan does not split: the
+    yardstick for the plan's splits (no count in LAUNCHES)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    b, sq, hp, hd = q.shape
+    p = FK.plan(b, sq, k.shape[1], hp, k.shape[2], hd)
+    out = torch.empty_like(q)
+    err = FK._library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), kv_valid.data_ptr(),
+        out.data_ptr(), None, b, sq, k.shape[1], hp, k.shape[2], hd, 1, 0, p["tokens"], 1,
+        p["key_tiles"], torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise AssertionError(f"flash launch failed with CUDA error {err}")
+    return out
+
+
+def time_flash_mix(torch, dev) -> dict:
+    """The flash kernel at every distinct prefill chunk of phase 3's run
+    (``serving_chunks``; SmolLM-135M heads, a 1024-row slot, kv_valid the
+    chunk's end), each held against the plain version and timed by device
+    as the wrapper plans it and with its keys not split; the sums weight
+    each chunk by how often the run issues it (one layer's calls)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    hp, hkv, hd = 9, 3, HD
+    k = torch.randn((1, S, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((1, S, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    chunks = serving_chunks()
+    total = {"plan": 0.0, "unsplit": 0.0}
+    split = 0
+    for (sq, start, end), n in sorted(chunks.items()):
+        q = torch.randn((1, sq, hp, hd), generator=gen, device=dev).to(torch.bfloat16)
+        pos = (start + torch.arange(sq, device=dev, dtype=torch.int32))[None].contiguous()
+        kv_valid = torch.full((1,), end, dtype=torch.int32, device=dev)
+        p = FK.plan(1, sq, S, hp, hkv, hd, end)
+        run = lambda i: FK.flash_attention(q, k, v, pos, kv_valid, causal=True, window=0,  # noqa: E731,B023
+                                           valid=end)
+        whole = lambda i: flash_unsplit(torch, q, k, v, pos, kv_valid)  # noqa: E731,B023
+        want = FR.flash_attention_ref(q, k, v, q_pos=pos, kv_valid=end)
+        for fn in (run, whole):
+            got = fn(0)
+            steps = row_bf16_steps(got, want)
+            if not (torch.isfinite(got.float()).all() and steps <= FLASH_BF16_STEPS):
+                raise AssertionError(f"flash kernel differs from plain at chunk {sq} at {start}")
+        per_call = 1 + (p["splits"] > 1)
+        t_plan = device_ms(run, "flash_attention_", 20, per_call)
+        t_whole = device_ms(whole, "flash_attention_", 20)
+        total["plan"] += n * t_plan
+        total["unsplit"] += n * t_whole
+        split += n * (p["splits"] > 1)
+        log(f"phase 6: flash_attention serving chunk {sq} at {start}, valid {end} (x{n}): "
+            f"{p['splits']} splits of {p['tiles_per_split']} of {p['key_tiles']} key tiles "
+            f"{t_plan:.6f} ms device, not split {t_whole:.6f}")
+    log(f"phase 6: flash_attention over phase 3's {sum(chunks.values())} prefill chunks "
+        f"({len(chunks)} distinct, {split} split), one layer: {total['plan']:.6f} ms device "
+        f"as planned, {total['unsplit']:.6f} not split")
+    return {"chunks": sum(chunks.values()), "distinct": len(chunks), "split_chunks": split,
+            "device_ms": total["plan"], "unsplit_device_ms": total["unsplit"]}
+
+
 def time_flash_kernel(torch, err: float, case: tuple, zamba: dict, chunk: dict) -> dict:
     """The flash kernel at the Zamba2-7B prefill shape on phase 2's inputs
     (59 MB each of q, k and v, beyond L2), timed with CUDA events and with
-    the profiler's device time, beside the plain version's times, the
-    bound and scaled_dot_product_attention on the same inputs (a yardstick
-    the port never calls)."""
+    the profiler's device time (every kernel of a call), beside the plain
+    version's times, the bound and scaled_dot_product_attention on the
+    same inputs (a yardstick the port never calls); then at the SmolLM
+    prefill chunks (``time_flash_chunks``), whose rows go under
+    ``shapes``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -2161,18 +2339,22 @@ def time_flash_kernel(torch, err: float, case: tuple, zamba: dict, chunk: dict) 
     plain = lambda i: FR.flash_attention_ref(q, k, v, q_pos=pos, kv_valid=kv_valid)  # noqa: E731
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
-    k_ms, k_dev = cuda_time_ms(run, iters=10), device_ms(run, "flash_attention_kernel", 10)
+    per_call = kernels_per_call(run, "flash_attention_")
+    k_ms = cuda_time_ms(run, iters=10)
+    k_dev = device_ms(run, "flash_attention_", 10, per_call)
     p_ms, p_dev = cuda_time_ms(plain, iters=3), device_ms(plain, "", 3)
     lib_ms, lib_dev = cuda_time_ms(lib, iters=10), device_ms(lib, "", 10)
     flops = flash_work(pos, kv_valid, hp, hd, causal=True, window=0)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     b_ms, b_by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
-    log(f"phase 6: flash_attention {k_ms:.4f} / {k_dev:.4f} ms (events / device) at "
-        f"B={b} L={l} Hp={hp} hd={hd} causal: bound {b_ms:.4f} ms by {b_by} ({flops} "
-        f"bf16 operations over the visible pairs, {nbytes} B), "
-        f"{flops / (k_dev * 1e-3) / 1e12:.1f} TFLOP/s, {b_ms / k_dev:.3f} of the bound; "
-        f"plain {p_ms:.4f} / {p_dev:.4f} ms; scaled_dot_product_attention "
-        f"{lib_ms:.4f} / {lib_dev:.4f} ms")
+    log(f"phase 6: flash_attention {k_ms:.4f} / {k_dev:.4f} ms (events / device, "
+        f"{per_call} kernels a call) at B={b} L={l} Hp={hp} hd={hd} causal: bound "
+        f"{b_ms:.4f} ms by {b_by} ({flops} bf16 operations over the visible pairs, "
+        f"{nbytes} B), {flops / (k_dev * 1e-3) / 1e12:.1f} TFLOP/s, {b_ms / k_dev:.3f} of "
+        f"the bound; plain {p_ms:.4f} / {p_dev:.4f} ms; scaled_dot_product_attention "
+        f"{lib_ms:.4f} / {lib_dev:.4f} ms; device factor {k_dev / lib_dev:.2f}")
+    shapes = time_flash_chunks(torch, q.device)
+    mix = time_flash_mix(torch, q.device)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
@@ -2180,13 +2362,15 @@ def time_flash_kernel(torch, err: float, case: tuple, zamba: dict, chunk: dict) 
             "launches_per_prefill_step": zamba["prefill_flash_launches"],
             "launches_per_serve_step": zamba["decode_launches"][0] / ZAMBA_STEPS,
             "launches_per_smollm_prefill_chunk": chunk["flash_attention"],
+            "kernels_per_call": per_call,
             "max_abs_err": err, "ms": k_ms, "device_ms": k_dev,
             "device_ms_in_prefill_step": zamba["flash_device_ms"]
             / zamba["prefill_flash_launches"],
             "plain_ms": p_ms, "plain_device_ms": p_dev,
             "bound_ms": b_ms, "bound_by": b_by, "bound_flops": flops,
             "bound_bytes": nbytes, "library_ms": lib_ms, "library_device_ms": lib_dev,
-            "library": "torch.nn.functional.scaled_dot_product_attention"}
+            "library": "torch.nn.functional.scaled_dot_product_attention",
+            "shapes": shapes, "serving_mix": mix}
 
 
 def main() -> int:

@@ -4,7 +4,10 @@ dispatch.
 
 Dispatch: CPU tensors take the plain PyTorch version in :mod:`.ref`; CUDA
 tensors launch the hand-written kernel (:mod:`.kernel`) or raise.  There
-is no other route.
+is no other route.  A kernel call whose keys the launch plan splits (a
+short prefill chunk over a long cache) launches the attention kernel and
+the kernel that merges the splits' float32 partials from a workspace the
+wrapper allocates; it counts as one launch.
 """
 
 from __future__ import annotations
@@ -29,7 +32,10 @@ def flash_attention(q, k, v, *, q_pos, kv_valid, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
     b = q.shape[0]
+    # an int kv_valid (a prefill chunk's end in its slot) is known here: the
+    # launch plan splits only the keys below it
+    valid = kv_valid if isinstance(kv_valid, int) else None
     q_pos = q_pos.to(device=q.device, dtype=torch.int32).expand(b, q.shape[1])
     kv_valid = R.kv_valid_rows(kv_valid, b, q.device)
     return K.flash_attention(*(aligned(t) for t in (q, k, v, q_pos, kv_valid)),
-                             causal=causal, window=window)
+                             causal=causal, window=window, valid=valid)

@@ -1,8 +1,10 @@
 """The card scripts' own logic on the CPU: ``chip_smoke.py``'s phase-3 check
 of the fused and rung serving runs (check runs, ``DecodeWatch``, the
 comparison at each first divergence) on a small model, where the kernel
-wrappers run their plain versions, and ``bitplane_matmul_ablation.py``'s
-isolation and refusal without a GPU."""
+wrappers run their plain versions; ``bitplane_matmul_ablation.py``'s
+isolation and refusal without a GPU; and the flash rows' helpers (phase
+3's prefill chunks, the SDPA backend's name, the split case and the chunk
+shapes)."""
 
 import ast
 import contextlib
@@ -145,3 +147,57 @@ def test_ablation_script_refuses_to_run_without_a_gpu():
                           capture_output=True, text=True, env=env, cwd=REPO, timeout=120)
     assert proc.returncode == 2
     assert '"rows"' not in proc.stdout
+
+
+def test_serving_chunks_are_the_scheduler_cut_of_phase_3_requests():
+    """Phase 6's serving mix is every prefill chunk of phase 3's requests:
+    each prompt cut from 0 to its end in buckets of the scheduler's ladder,
+    the first chunk at 0."""
+    from repro_torch.serving.scheduler import prefill_buckets
+
+    chunks = C.serving_chunks()
+    reqs = C.make_requests()
+    assert sum(chunks.values()) > len(reqs)
+    assert sum(n for (_, start, _), n in chunks.items() if start == 0) == len(reqs)
+    ends = sorted(end for (_, _, end), n in chunks.items() for _ in range(n))
+    assert set(len(r.prompt) for r in reqs) <= set(ends)
+    for (bucket, start, end), n in chunks.items():
+        assert bucket in prefill_buckets(C.S) and 0 < end - start <= bucket and end <= C.S
+    covered = sum(n * (end - start) for (_, start, end), n in chunks.items())
+    assert covered == sum(len(r.prompt) for r in reqs)
+
+
+def test_serving_mix_takes_the_split_and_the_serial_path():
+    """Over phase 3's prefill chunks the launch plan splits the keys of
+    the long-offset ones and walks the short ones in one range."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    plans = {c: FK.plan(1, c[0], C.S, 9, 3, C.HD, c[2]) for c in C.serving_chunks()}
+    assert any(p["splits"] > 1 for p in plans.values())
+    assert any(p["splits"] == 1 for p in plans.values())
+    for (_, _, end), p in plans.items():
+        assert (p["splits"] > 1) == (-(-end // FK.KEYS) >= FK.SPLIT_TILES)
+
+
+@pytest.mark.parametrize("names,backend", [
+    (["cudnn_generated_fort_native_sdpa_sm90_flash_fprop_wgmma_f16"], "cudnn"),
+    (["void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits>"], "flash"),
+    (["fmha_cutlassF_bf16_aligned_64x64_rf_sm80"], "efficient"),
+    (["void at::native::elementwise_kernel<128, 4>", "Memset (Device)"], "math"),
+])
+def test_sdpa_backend_is_named_from_its_kernels(names, backend):
+    assert C.sdpa_backend(names) == backend
+
+
+def test_flash_cases_hold_a_split_launch_and_chunks_match_the_serving_slot():
+    """Phase 2 checks launches whose keys are split and merged and launches
+    that are not; phase 6's chunk rows are SmolLM prefill chunks, the first
+    of a prompt unsplit, the later ones split below their kv_valid."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    plans = [FK.plan(b, sq, skv, hp, hkv, hd, valid)
+             for b, sq, skv, hp, hkv, hd, _, valid, *_ in C.FLASH_CASES]
+    assert any(p["splits"] > 1 for p in plans) and any(p["splits"] == 1 for p in plans)
+    for sq, skv, start, valid in C.FLASH_CHUNKS:
+        assert start + sq <= skv and start < valid <= skv
+        assert (FK.plan(1, sq, skv, 9, 3, C.HD, valid)["splits"] > 1) == (start > 0)

@@ -12,7 +12,8 @@ split of K and then the splits in order, the plain version through cuBLAS
 in an order of its own, so it is held to atol = rtol = 1e-4.  The SSD scan is
 float32 on both sides and differs only in the order of its sums: it is held
 to 1e-4 of the largest output (about 1e-5 measured at full width).  Flash
-attention rounds p to bf16 at the running max of its 64-key tiles, the plain
+attention rounds p to bf16 at the running max of its 128-key tiles (within
+a split of the keys, whose partials a second kernel merges), the plain
 version at that of its 512-key chunks, and the float32 sums run in another
 order, which can flip a rounding of p or of the output: it is held to two
 bf16 steps at the largest magnitude of each output row (batch row, query,
@@ -153,19 +154,35 @@ def test_cuda_mamba_prefill_runs_the_kernel_once_per_layer():
     (1, 64, 1024, 9, 3, 64, 0, 64, True, 0),          # SmolLM chunks: first,
     (1, 512, 1024, 9, 3, 64, 448, 960, True, 0),      # ... at an offset,
     (1, 1, 1024, 9, 3, 64, 1000, 1001, True, 0),      # ... one row
+    (1, 64, 1024, 9, 3, 64, 960, 1024, True, 0),      # ... the last,
+    (1, 64, 4096, 9, 3, 64, 4032, 4096, True, 0),     # ... over a long cache: keys split
+    (1, 64, 4096, 9, 3, 64, 2000, 2064, True, 0),     # ... mid-cache: keys split below valid
     (2, 1000, 1000, 8, 2, 64, 0, 1000, True, 0),      # ragged L
-    (1, 256, 256, 4, 4, 128, 0, 256, True, 64),       # sliding window
+    (1, 256, 256, 4, 4, 128, 0, 256, True, 64),       # sliding window,
+    (2, 1024, 1024, 32, 32, 112, 0, 1024, True, 64),  # ... at hd 112 (Zamba2's heads),
+    (1, 300, 700, 9, 3, 64, 400, 700, True, 200),     # ... GQA at an offset
     (2, 64, 192, 6, 3, 32, 0, 150, False, 0),         # bidirectional, valid < Skv
     (3, 40, 40, 4, 4, 16, 0, 40, True, 0),            # the smoke config
+    (2, 300, 1000, 32, 4, 128, 500, (800, 1000), True, 0),  # Yi-9B heads: rep 8
+    (2, 600, 1500, 32, 32, 112, 700, (1300, 901), True, 0),  # hd 112, ragged valid
+    (1, 96, 2048, 32, 32, 112, 1952, 2048, True, 0),  # hd 112, keys split
+    (2, 130, 130, 6, 2, 48, 0, 130, True, 0),         # hd 48, a slab zero past 48
+    (1, 200, 333, 4, 1, 80, 0, (333,), False, 0),     # hd 80, rep 4, bidirectional
+    (2, 257, 257, 8, 8, 96, 0, 257, True, 100),       # hd 96, window
 ])
 def test_cuda_flash_attention_matches_plain_on_card(b, sq, skv, hp, hkv, hd, start,
                                                     valid, causal, window):
+    """Every head dim of HEAD_DIMS, GQA packing (rep 1, 3, 4, 8), ragged
+    per-row kv_valid, launches whose keys are split and merged, and one
+    launch a call."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(sq * hp + hd)
     q = torch.randn((b, sq, hp, hd), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((b, skv, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((b, skv, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
     pos = (start + torch.arange(sq, device=dev, dtype=torch.int32))[None].expand(b, sq)
+    if isinstance(valid, tuple):
+        valid = torch.tensor(valid, dtype=torch.int32, device=dev).expand(b).contiguous()
     FK.reset_launches()
     got = FO.flash_attention(q, k, v, q_pos=pos, kv_valid=valid, causal=causal,
                              window=window)
@@ -174,6 +191,45 @@ def test_cuda_flash_attention_matches_plain_on_card(b, sq, skv, hp, hkv, hd, sta
                                   window=window)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    rmax = want.float().abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    step = torch.exp2(torch.floor(torch.log2(rmax)) - 7)
+    assert ((got.float() - want.float()).abs() <= FLASH_BF16_STEPS * step).all()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_split_repeats_bit_for_bit():
+    """A call whose keys are split merges the splits in a fixed order: two
+    calls on the same inputs give the same bits."""
+    dev = _cuda()
+    assert FK.plan(1, 64, 4096, 9, 3, 64)["splits"] > 1
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((1, 64, 9, 64), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((1, 4096, 3, 64), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((1, 4096, 3, 64), generator=gen, device=dev).to(torch.bfloat16)
+    pos = (4032 + torch.arange(64, device=dev, dtype=torch.int32))[None]
+    a = FO.flash_attention(q, k, v, q_pos=pos, kv_valid=4096)
+    b = FO.flash_attention(q, k, v, q_pos=pos, kv_valid=4096)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_last_split_runs_past_a_low_bound():
+    """A host bound on kv_valid below the real kv_valid plans splits over
+    the keys below the bound only; the last split runs on to the end of the
+    keys, so the result still matches the plain version."""
+    dev = _cuda()
+    pl = FK.plan(1, 64, 4096, 9, 3, 64, valid=1024)
+    assert pl["splits"] > 1 and pl["splits"] * pl["tiles_per_split"] < 4096 // FK.KEYS
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((1, 64, 9, 64), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((1, 4096, 3, 64), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((1, 4096, 3, 64), generator=gen, device=dev).to(torch.bfloat16)
+    pos = (4032 + torch.arange(64, device=dev, dtype=torch.int32))[None].contiguous()
+    kv_valid = torch.full((1,), 4096, dtype=torch.int32, device=dev)
+    got = FK.flash_attention(q, k, v, pos, kv_valid, causal=True, window=0, valid=1024)
+    want = FR.flash_attention_ref(q, k, v, q_pos=pos, kv_valid=4096)
+    torch.cuda.synchronize()
     rmax = want.float().abs().amax(-1, keepdim=True).clamp(min=1e-30)
     step = torch.exp2(torch.floor(torch.log2(rmax)) - 7)
     assert ((got.float() - want.float()).abs() <= FLASH_BF16_STEPS * step).all()
