@@ -26,7 +26,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    matmul at the quickstart's shape and every SmolLM-135M projection; the
    SSD scan at the full-width Mamba2-1.3B prefill shape (B=4, L=1024,
    H=64, P=64, N=128, Q=256) with a nonzero initial state and realistic
-   dt·A, at a ragged L=1000 and at L=37 (below one chunk); flash attention
+   dt·A, b and c per group (G=1) as the model passes them and per head
+   (G=H, the reference's contract), at a ragged L=1000, at L=37 (below one
+   chunk) and at the Zamba2-7B prefill shape (B=2, L=4096, H=112, P=64,
+   N=64, G=2); flash attention
    at the full-width Zamba2-7B prefill shape (B=2, L=4096, 32 heads of
    112, causal), at SmolLM-135M prefill chunks (64 rows at offsets 0, 448
    and 960, the last with its keys split and merged, and 512 rows at
@@ -102,9 +105,16 @@ Phases (any failure exits non-zero; no phase's error is caught):
    448 with 960 valid keys, beside SDPA over the valid keys with a boolean
    mask, named by the backend it took, and under ``serving_mix`` the
    prefill chunks of phase 3's run, each timed as the launch plan splits
-   it and with its keys not split).  A paged-attention or flash call
-   launches the attention kernel and, when its keys are split, the kernel
-   that merges the splits; the device times cover both.
+   it and with its keys not split; the SSD row the Mamba2-1.3B prefill
+   shape and, under ``shapes``, the Zamba2-7B one and both again with b
+   and c rounded to bf16 values as the models' are, each beside its
+   tensor-core bound at the TF32 passes the kernel takes on those inputs
+   (3xTF32 throughout on drawn b and c; on bf16-valued ones one pass for
+   the scores and two for c.state) and its float32 CUDA-core bound).  A
+   paged-attention or flash call launches the attention kernel and, when
+   its keys are split, the kernel that merges the splits; an SSD call its
+   three kernels (chunk states, the pass over chunks, the outputs); the
+   device times cover them all.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -128,6 +138,16 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
+# dense TF32 tensor-core FLOP/s
+TF32_TENSOR_FLOPS = 495e12
+# TF32 passes the SSD kernel takes for each of its four products, in
+# ssd_work's order (scores c.b, scores.xdt, c.state, the chunk state): on
+# float32 b and c every product is 3xTF32; on bf16-valued b and c, as the
+# models' are, the scores' operands are exact in TF32 (one pass) and so is
+# c in c.state (two), while the decay-weighted operands of the other two
+# products still split (three)
+SSD_PASSES_F32 = (3, 3, 3, 3)
+SSD_PASSES_BF16_BC = (1, 3, 2, 3)
 
 SOURCES = ("paged_attention.cu", "bitplane.cu", "bitplane_matmul.cu", "ssd.cu",
            "flash_attention.cu", "exp_delta.cu")
@@ -158,11 +178,20 @@ PROJECTIONS = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
 # greedy decode steps
 SSM_B, SSM_L, SSM_STEPS = 4, 1024, 32
 # SSD kernel against its plain version, relative to max |y|: both compute
-# in float32 and differ only in the order of their sums (the kernel's
-# 64-token tiles and warp scan against torch.cumsum and cuBLAS), which
-# leaves errors near 1e-5 of the largest output; a wrong tile, mask or
-# state hand-over opens errors of order 1.
+# in float32 (the kernel's products are 3xTF32: each operand split into a
+# TF32 high part and its remainder, the remainder times remainder term
+# dropped, about 2^-20 of a product) and sum in other orders (the kernel's
+# 64-token tiles, chunk states and warp scan against torch.cumsum and
+# cuBLAS), which leaves errors near 1e-5 of the largest output; a wrong
+# tile, mask or state hand-over opens errors of order 1.
 SSD_REL_TOL = 1e-4
+# SSD shapes (B, L, H, P, N, G): the Mamba2-1.3B and Zamba2-7B prefills of
+# phases 5 and 5b, b and c per group as the models pass them
+SSD_MAMBA = (4, 1024, 64, 64, 128, 1)
+SSD_ZAMBA = (2, 4096, 112, 64, 64, 2)
+# the device kernels of one SSD call (chunk states, the pass over chunks,
+# the outputs)
+SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_output_kernel")
 # Mamba2, layer by layer (each layer fed the same input hidden state, so
 # nothing is amplified), in bf16 steps at the layer output's largest
 # magnitude.  Kernel against plain SSD: the scan's float32 differences can
@@ -512,33 +541,46 @@ def check_bitplane_kernels(torch, dev) -> dict:
     return errs
 
 
-def ssd_case(torch, dev, gen, l: int, h0: bool = True):
-    """SSD inputs at Mamba2-1.3B's widths (B=4, H=64, P=64, N=128): dt in
-    [1e-3, 1e-1], A = -exp(a_log) with exp(a_log) in [1, 16] as
-    ``ssm_params`` draws them, so dt·A reaches -1.6 and a chunk's cumsum
-    some -400; unit-normal b, c and x·dt scaled by dt."""
-    h, p, n = 64, 64, 128
+def ssd_case(torch, dev, gen, shape=SSD_MAMBA, l=None, h0: bool = True):
+    """SSD inputs at ``shape`` (B, L, H, P, N, G; L replaced by ``l`` when
+    given): dt in [1e-3, 1e-1], A = -exp(a_log) with exp(a_log) in [1, 16]
+    as ``ssm_params`` draws them, so dt·A reaches -1.6 and a chunk's cumsum
+    some -400; unit-normal b and c per group and x·dt scaled by dt."""
+    bsz, length, h, p, n, g = shape
+    l = l or length
     a = -(torch.rand((h,), generator=gen, device=dev) * 15 + 1)
-    dt = torch.rand((SSM_B, l, h), generator=gen, device=dev) * 0.099 + 1e-3
-    xdt = torch.randn((SSM_B, l, h, p), generator=gen, device=dev) * dt[..., None]
-    b = torch.randn((SSM_B, l, h, n), generator=gen, device=dev)
-    c = torch.randn((SSM_B, l, h, n), generator=gen, device=dev)
-    state = torch.randn((SSM_B, h, n, p), generator=gen, device=dev) if h0 else None
+    dt = torch.rand((bsz, l, h), generator=gen, device=dev) * 0.099 + 1e-3
+    xdt = torch.randn((bsz, l, h, p), generator=gen, device=dev) * dt[..., None]
+    b = torch.randn((bsz, l, g, n), generator=gen, device=dev)
+    c = torch.randn((bsz, l, g, n), generator=gen, device=dev)
+    state = torch.randn((bsz, h, n, p), generator=gen, device=dev) if h0 else None
     return xdt, dt * a, b, c, state
 
 
-def check_ssd_kernel(torch, dev) -> tuple:
+def ssd_cases():
+    """Phase 2's SSD cases (name, shape, L, h0): the Mamba2-1.3B prefill
+    with b and c per group (one group), a ragged L, L below one chunk, the
+    same prefill with b and c per head (G = H, the reference's contract),
+    and the Zamba2-7B prefill (two groups); the first and the last are
+    timed in phase 6."""
+    per_head = SSD_MAMBA[:5] + (SSD_MAMBA[2],)
+    return (("mamba2", SSD_MAMBA, None, True), ("ragged", SSD_MAMBA, 1000, True),
+            ("short", SSD_MAMBA, 37, False), ("per-head", per_head, None, True),
+            ("zamba2", SSD_ZAMBA, None, True))
+
+
+def check_ssd_kernel(torch, dev) -> dict:
     """The SSD kernel against its plain version on the same CUDA inputs,
-    within SSD_REL_TOL of max |y| (and of max |h_final|): the prefill
-    shape (L=1024, nonzero h0), a ragged L=1000 and L=37 below one chunk.
-    Returns (max abs err at the prefill shape, its inputs)."""
+    within SSD_REL_TOL of max |y| (and of max |h_final|), at
+    ``ssd_cases``.  Returns {name: (max abs err, inputs)} for the Mamba2
+    and Zamba2 prefill shapes."""
     from repro_torch.kernels.ssd import ops as SO
     from repro_torch.kernels.ssd import ref as SR
 
     gen = torch.Generator(device=dev).manual_seed(5)
     out = {}
-    for l, h0 in ((SSM_L, True), (1000, True), (37, False)):
-        case = ssd_case(torch, dev, gen, l, h0)
+    for name, shape, l, h0 in ssd_cases():
+        case = ssd_case(torch, dev, gen, shape, l, h0)
         y, hf = SO.ssd(*case, chunk=256)
         y_r, hf_r = SR.ssd_ref(*case, chunk=256)
         torch.cuda.synchronize()
@@ -546,12 +588,15 @@ def check_ssd_kernel(torch, dev) -> tuple:
         err_h = float((hf - hf_r).abs().max())
         rel_y = err_y / float(y_r.abs().max())
         rel_h = err_h / float(hf_r.abs().max())
-        log(f"phase 2: ssd L={l} h0={h0}: max abs err y {err_y:.3g} (rel {rel_y:.3g}), "
-            f"h_final {err_h:.3g} (rel {rel_h:.3g}), tolerance {SSD_REL_TOL} of max")
+        log(f"phase 2: ssd {name} B L H P N G = {shape[:1] + (l or shape[1],) + shape[2:]} "
+            f"h0={h0}: max abs err y {err_y:.3g} (rel {rel_y:.3g}), h_final {err_h:.3g} "
+            f"(rel {rel_h:.3g}), tolerance {SSD_REL_TOL} of max")
         if not (rel_y <= SSD_REL_TOL and rel_h <= SSD_REL_TOL):
-            raise AssertionError(f"ssd kernel differs from plain at L={l}")
-        out[l] = (max(err_y, err_h), case)
-    return out[SSM_L]
+            raise AssertionError(f"ssd kernel differs from plain at {name}")
+        if name in ("mamba2", "zamba2"):
+            out[name] = (max(err_y, err_h), case)
+        del y, hf, y_r, hf_r
+    return out
 
 
 def check_flash_kernel(torch, dev) -> tuple:
@@ -1367,12 +1412,13 @@ def run_mamba(torch, dev) -> dict:
                                "a Mamba2 prefill")
     rows = [(e.self_device_time_total, e.key) for e in prefill_rows]
     busy_ms = sum(t for t, _ in rows) / 1e3
-    ssd_ms = sum(t for t, k in rows if "ssd_kernel" in k) / 1e3
+    ssd_ms = sum(t for t, k in rows if any(n in k for n in SSD_KERNELS)) / 1e3
     if busy_ms <= 0 or ssd_ms <= 0:
         raise AssertionError("the profiler recorded no device time for the prefill")
     top = sorted(rows, reverse=True)[:5]
     log(f"phase 5 profile: one prefill {busy_ms:.3f} ms of device kernel time, SSD "
-        f"kernel {ssd_ms:.3f} ms ({ssd_ms / busy_ms:.3f} of it), host wall "
+        f"kernels {ssd_ms:.3f} ms ({ssd_ms / busy_ms:.3f} of it; "
+        f"{ssd_ms / prefill_launches:.4f} ms a call), host wall "
         f"{pre_s * 1e3:.2f} ms (unprofiled; busy share {busy_ms / 1e3 / pre_s:.3f}); top "
         f"kernels ms: " + "; ".join(f"{k[:40]} {t / 1e3:.3f}" for t, k in top))
     state = [tok, cache]
@@ -1572,21 +1618,23 @@ def run_zamba(torch, dev) -> dict:
 
     prefill_rows = device_rows(lambda: prefill_step(params, {"tokens": prompts}),
                                "a Zamba2 prefill",
-                               {"flash_attention_kernel": n_attn, "ssd_kernel": n_mamba})
+                               {"flash_attention_kernel": n_attn,
+                                **{name: n_mamba for name in SSD_KERNELS}})
     rows = [(e.self_device_time_total, e.key) for e in prefill_rows]
     busy_ms = sum(t for t, _ in rows) / 1e3
     # a flash call launches its attention kernel and, when its keys are
     # split, the merge kernel: both are named flash_attention_*
     flash_ms = sum(t for t, k in rows if "flash_attention_" in k) / 1e3
-    ssd_ms = sum(t for t, k in rows if "ssd_kernel" in k) / 1e3
+    ssd_ms = sum(t for t, k in rows if any(n in k for n in SSD_KERNELS)) / 1e3
     n_rec = {name: sum(e.count for e in prefill_rows if name in e.key)
-             for name in ("flash_attention_kernel", "ssd_kernel")}
+             for name in ("flash_attention_kernel",) + SSD_KERNELS}
     if busy_ms <= 0 or flash_ms <= 0 or ssd_ms <= 0:
         raise AssertionError("the profiler recorded no device time for the prefill kernels")
     top = sorted(rows, reverse=True)[:6]
     log(f"phase 5b profile: one prefill {busy_ms:.3f} ms of device kernel time, flash "
         f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.3f}), SSD {ssd_ms:.3f} ms "
-        f"({ssd_ms / busy_ms:.3f}), host wall {pre_s * 1e3:.2f} ms (unprofiled; busy "
+        f"({ssd_ms / busy_ms:.3f}; {ssd_ms / n_mamba:.4f} ms a call), host wall "
+        f"{pre_s * 1e3:.2f} ms (unprofiled; busy "
         f"share {busy_ms / 1e3 / pre_s:.3f}); launches recorded {n_rec}; top kernels ms: "
         + "; ".join(f"{k[:40]} {t / 1e3:.3f}" for t, k in top))
     state = [tok, cache]
@@ -2087,58 +2135,119 @@ def time_exp_delta_kernels(torch, span, errs, serve_launches, per_step, rt) -> l
     ]
 
 
-def ssd_work(bsz: int, l: int, h: int, p: int, n: int, q: int) -> tuple:
-    """(bytes, causal operations, TPU-form operations) of one SSD launch:
-    each input read once (xdt, da, b, c, h0) and each output written once
-    (y, h_final), float32. The function needs only the causal half of the
-    two Q x Q products, 2 (Q(Q+1)/2 (N + P) + 2 Q N P) per (batch, head,
-    chunk); the TPU kernel computes them in full, 2 (Q^2 N + Q^2 P + 2 Q N P),
-    and that count is kept only for comparison."""
-    nbytes = 4 * (2 * bsz * l * h * p + bsz * l * h + 2 * bsz * l * h * n
+def ssd_work(bsz: int, l: int, h: int, p: int, n: int, q: int, g: int) -> tuple:
+    """(bytes, causal operations of each product, TPU-form operations) of
+    one SSD launch: each input read once (xdt, da, b and c per group, h0)
+    and each output written once (y, h_final), float32.  The function needs
+    only the causal half of the two Q x Q products: per (batch, head, chunk)
+    2 Q(Q+1)/2 N for the scores c.b, 2 Q(Q+1)/2 P for scores.xdt and 2 Q N P
+    each for c.state and the chunk state, in that order.  The TPU kernel
+    computes the Q x Q products in full, 2 (Q^2 N + Q^2 P + 2 Q N P), and
+    that count is kept only for comparison."""
+    nbytes = 4 * (2 * bsz * l * h * p + bsz * l * h + 2 * bsz * l * g * n
                   + 2 * bsz * h * n * p)
     blocks = bsz * h * (l // q)
     full = 2 * (q * q * n + q * q * p + 2 * q * n * p) * blocks
     tri = q * (q + 1) // 2
-    causal = 2 * (tri * n + tri * p + 2 * q * n * p) * blocks
-    return nbytes, causal, full
+    products = tuple(2 * k * blocks for k in (tri * n, tri * p, q * n * p, q * n * p))
+    return nbytes, products, full
 
 
-def time_ssd_kernel(torch, err: float, case: tuple, mamba: dict, zamba: dict) -> dict:
-    """The SSD kernel at the Mamba2-1.3B prefill shape on phase 2's inputs
-    (420 MB, beyond L2), timed with CUDA events and with the profiler's
-    device time, beside the plain version's times and the bound."""
+def ssd_bounds(nbytes: int, products: tuple, passes: tuple = SSD_PASSES_F32) -> dict:
+    """Both bounds of an SSD launch: the form the kernel takes on these
+    inputs (each product's causal operations times its TF32 passes at the
+    TF32 tensor-core rate) against the bytes, and float32 on the CUDA cores
+    against the bytes."""
+    causal = sum(products)
+    tc_flops = sum(k * o for k, o in zip(passes, products))
+    tc_ms, tc_by = bound_ms(nbytes, tc_flops, TF32_TENSOR_FLOPS)
+    f32_ms, f32_by = bound_ms(nbytes, causal, F32_FLOPS)
+    return {"bound_ms": tc_ms, "bound_by": tc_by, "bound_flops": tc_flops,
+            "bound_form": f"TF32 tensor cores, passes {list(passes)}",
+            "f32_bound_ms": f32_ms, "f32_bound_by": f32_by, "causal_flops": causal,
+            "bound_bytes": nbytes}
+
+
+def time_ssd_shape(torch, err: float, case: tuple, passes: tuple = SSD_PASSES_F32) -> dict:
+    """The SSD kernel on phase 2's inputs at one prefill shape (beyond L2:
+    156 MB at Mamba2-1.3B's, 489 MB at Zamba2-7B's), timed with CUDA events
+    and with the profiler's device time of its three kernels, beside the
+    plain version's times and both bounds (``passes``: the TF32 passes the
+    kernel takes for each product on these inputs)."""
     from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.kernels.ssd import ref as SR
 
     xdt, da, b, c, h0 = case
     bsz, l, h, p = xdt.shape
-    n, q = b.shape[-1], 256
+    g, n = b.shape[-2:]
+    q = 256
     run = lambda i: SK.ssd(xdt, da, b, c, h0, chunk=q)  # noqa: E731
     plain = lambda i: SR.ssd_ref(xdt, da, b, c, h0, chunk=q)  # noqa: E731
-    k_ms, k_dev = cuda_time_ms(run, iters=20), device_ms(run, "ssd_kernel", 20)
-    p_ms, p_dev = cuda_time_ms(plain, iters=5), device_ms(plain, "", 5)
-    nbytes, causal, full = ssd_work(bsz, l, h, p, n, q)
-    b_ms, b_by = bound_ms(nbytes, causal, F32_FLOPS)
+    per_call = kernels_per_call(run, "::ssd_")
+    k_ms, k_dev = cuda_time_ms(run, iters=20), device_ms(run, "::ssd_", 20, per_call)
+    p_ms, p_dev = cuda_time_ms(plain, iters=3), device_ms(plain, "", 3)
+    nbytes, products, full = ssd_work(bsz, l, h, p, n, q, g)
+    bounds = ssd_bounds(nbytes, products, passes)
+    causal = bounds["causal_flops"]
     b_full, _ = bound_ms(nbytes, full, F32_FLOPS)
-    log(f"phase 6: ssd {k_ms:.4f} / {k_dev:.4f} ms (events / device) at "
-        f"B={bsz} L={l} H={h} P={p} N={n} Q={q}: bound {b_ms:.4f} ms by {b_by} "
-        f"({causal} float32 operations for the causal half of the Q x Q products, "
-        f"{nbytes} B), {causal / (k_dev * 1e-3) / 1e12:.2f} TFLOP/s of causal "
-        f"work, {b_ms / k_dev:.3f} of the bound; the TPU kernel's full Q x Q "
-        f"form would count {full} operations, {b_full:.4f} ms; plain "
-        f"{p_ms:.4f} / {p_dev:.4f} ms")
+    ws = SK.plan(bsz, l, h, g, p, n, q)["workspace_bytes"]
+    log(f"phase 6: ssd B={bsz} L={l} H={h} P={p} N={n} G={g} Q={q}: {k_ms:.4f} / {k_dev:.4f} "
+        f"ms (events / device, {per_call} kernels a call); bound {bounds['bound_ms']:.4f} ms "
+        f"by {bounds['bound_by']} ({bounds['bound_flops']} TF32 operations: passes "
+        f"{list(passes)} over {list(products)} operations of the causal half of the Q x Q "
+        f"products at {TF32_TENSOR_FLOPS / 1e12:.0f} TFLOP/s, "
+        f"{nbytes} B), {bounds['bound_ms'] / k_dev:.3f} of it; float32 CUDA-core bound "
+        f"{bounds['f32_bound_ms']:.4f} ms by {bounds['f32_bound_by']}, "
+        f"{bounds['f32_bound_ms'] / k_dev:.3f} of it; {causal / (k_dev * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s of causal work; workspace {ws} B written once, read twice; the TPU "
+        f"kernel's full Q x Q form would count {full} operations, {b_full:.4f} ms in "
+        f"float32; plain {p_ms:.4f} / {p_dev:.4f} ms")
+    return {"shape": [bsz, l, h, p, n, g], "chunk": q, "kernels_per_call": per_call,
+            "max_abs_err": err, "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms,
+            "plain_device_ms": p_dev, **bounds, "bound_share": bounds["bound_ms"] / k_dev,
+            "workspace_bytes": ws, "tpu_form_flops": full, "tpu_form_f32_bound_ms": b_full}
+
+
+def bf16_valued_bc(torch, case: tuple) -> tuple:
+    """``case`` with b and c rounded to bf16 values, as the models' are
+    (their products then take the kernel's exact-TF32 path), held to the
+    plain version within SSD_REL_TOL; returns (max abs err, the inputs)."""
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd import ref as SR
+
+    xdt, da, b, c, h0 = case
+    case = (xdt, da, b.bfloat16().float(), c.bfloat16().float(), h0)
+    (y, hf), (y_r, hf_r) = SK.ssd(*case, chunk=256), SR.ssd_ref(*case, chunk=256)
+    err_y, err_h = float((y - y_r).abs().max()), float((hf - hf_r).abs().max())
+    rel = max(err_y / float(y_r.abs().max()), err_h / float(hf_r.abs().max()))
+    log(f"phase 6: ssd B L = {tuple(xdt.shape[:2])}, b and c bf16-valued: rel err {rel:.3g}, "
+        f"tolerance {SSD_REL_TOL} of max")
+    if not rel <= SSD_REL_TOL:
+        raise AssertionError("ssd kernel differs from plain on bf16-valued b and c")
+    return max(err_y, err_h), case
+
+
+def time_ssd_kernel(torch, checks: dict, mamba: dict, zamba: dict) -> dict:
+    """The SSD kernel's row: at the Mamba2-1.3B prefill shape, with under
+    ``shapes`` the Zamba2-7B prefill shape and both shapes with b and c
+    rounded to bf16 values as the models' are (``time_ssd_shape``)."""
+    row = time_ssd_shape(torch, *checks["mamba2"])
+    z = time_ssd_shape(torch, *checks["zamba2"])
+    z["device_ms_in_prefill_step"] = zamba["ssd_device_ms"] / zamba["prefill_ssd_launches"]
+    exact = []
+    for name in ("mamba2", "zamba2"):
+        exact.append(time_ssd_shape(torch, *bf16_valued_bc(torch, checks[name][1]),
+                                    SSD_PASSES_BF16_BC))
+        exact[-1]["bc"] = "bf16-valued"
     return {"name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/kernel.py:72",
             "launches": mamba["prefill_launches"],
             "launches_per_prefill_step": mamba["prefill_launches"],
             "launches_per_serve_step": mamba["decode_launches"] / SSM_STEPS,
             "launches_per_zamba2_prefill_step": zamba["prefill_ssd_launches"],
-            "max_abs_err": err, "ms": k_ms, "device_ms": k_dev,
-            "plain_ms": p_ms, "plain_device_ms": p_dev,
-            "bound_ms": b_ms, "bound_by": b_by, "bound_flops": causal,
-            "bound_bytes": nbytes, "tpu_form_flops": full,
-            "tpu_form_bound_ms": b_full,
-            "library_ms": None, "library": "none"}
+            **row, "device_ms_in_prefill_step": mamba["ssd_device_ms"]
+            / mamba["prefill_launches"], "library_ms": None, "library": "none",
+            "shapes": [z, *exact]}
 
 
 def flash_work(pos, kv_valid, hp: int, hd: int, causal: bool, window: int) -> int:
@@ -2401,7 +2510,8 @@ def main() -> int:
     dev = torch.device("cuda")
     errs = check_kernels(torch, dev)
     errs.update(check_bitplane_kernels(torch, dev))
-    errs["ssd"], ssd_inputs = check_ssd_kernel(torch, dev)
+    ssd_checks = check_ssd_kernel(torch, dev)
+    errs["ssd"] = ssd_checks["mamba2"][0]
     errs["flash_attention"], flash_inputs = check_flash_kernel(torch, dev)
     exp_delta_errs, exp_delta_span = check_exp_delta_kernels(torch, dev)
     errs.update(exp_delta_errs)
@@ -2449,7 +2559,7 @@ def main() -> int:
         "steps": {"fused": fused_rep["decode_steps"], "rung": rung_rep["decode_steps"]}})
     kernels += time_bitplane_kernels(torch, dev, errs, fused_launches, per_step,
                                      prefill, qs_launches)
-    kernels.append(time_ssd_kernel(torch, errs["ssd"], ssd_inputs, mamba, zamba))
+    kernels.append(time_ssd_kernel(torch, ssd_checks, mamba, zamba))
     kernels.append(time_flash_kernel(torch, errs["flash_attention"], flash_inputs, zamba,
                                      prefill))
     kernels += time_exp_delta_kernels(torch, exp_delta_span, errs, fused_launches,

@@ -2,6 +2,9 @@
 ``models/ssm.py::_ssd_scan_body`` (chunked state-space duality,
 arXiv:2405.21060), all in float32.
 
+b and c come per group, (B, L, G, N) with G dividing H; they are expanded
+to heads (head h takes group h // (H / G), the model's mapping) before any
+product, so with G = H it is the reference's per-head function exactly.
 It materialises the (B, nc, Q, Q, H) decay-masked scores that the kernel
 never holds.  The CPU path and the parity tests run it; on the card it is
 the kernel's reference.
@@ -12,16 +15,23 @@ from __future__ import annotations
 import torch
 
 
-def ssd_chunked(xdt, da, b_h, c_h, h0, q: int):
+def groups_to_heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, ..., G, N) -> (B, ..., H, N) by contiguous block mapping: head h
+    takes group h // (H / G)."""
+    return torch.repeat_interleave(t, h // t.shape[-2], dim=-2)
+
+
+def ssd_chunked(xdt, da, b, c, h0, q: int):
     """The chunked scan over L a multiple of ``q``.
 
-    xdt (B, L, H, P); da (B, L, H) per-position dt·A (negative); b_h/c_h
-    (B, L, H, N); h0 (B, H, N, P); all float32.  Returns (y (B, L, H, P),
-    h_final (B, H, N, P)) float32."""
+    xdt (B, L, H, P); da (B, L, H) per-position dt·A (negative); b/c
+    (B, L, G, N) with G dividing H; h0 (B, H, N, P); all float32.  Returns
+    (y (B, L, H, P), h_final (B, H, N, P)) float32."""
     bsz, l, h, p = xdt.shape
     if l % q:
         raise ValueError(f"sequence {l} is not a multiple of the ssd chunk {q}")
     nc = l // q
+    b_h, c_h = groups_to_heads(b, h), groups_to_heads(c, h)
 
     def r(t):
         return t.reshape(bsz, nc, q, *t.shape[2:])
@@ -56,7 +66,7 @@ def ssd_chunked(xdt, da, b_h, c_h, h0, q: int):
     return y, state
 
 
-def pad_to_chunks(xdt, da, b_h, c_h, chunk: int):
+def pad_to_chunks(xdt, da, b, c, chunk: int):
     """The inputs in float32 with L padded to a multiple of
     ``q = min(chunk, L)`` by zero inputs and da = 0 (decay exp(0) = 1 and
     no input: the carried state is unchanged; copies only where a pad or a
@@ -64,19 +74,20 @@ def pad_to_chunks(xdt, da, b_h, c_h, chunk: int):
     l = xdt.shape[1]
     q = min(chunk, l)
     pad = (-l) % q
-    ts = tuple(t.float() for t in (xdt, da, b_h, c_h))
+    ts = tuple(t.float() for t in (xdt, da, b, c))
     if pad:
         ts = tuple(torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in ts)
     return ts, q
 
 
-def ssd_ref(xdt, da, b_h, c_h, h0=None, chunk: int = 256):
-    """The reference's ``ssd_scan`` contract: any L, zero initial state by
-    default.  Returns (y (B, L, H, P), h_final (B, H, N, P)) float32."""
+def ssd_ref(xdt, da, b, c, h0=None, chunk: int = 256):
+    """The reference's ``ssd_scan`` contract with b/c per group (G = H:
+    per head): any L, zero initial state by default.  Returns (y (B, L, H,
+    P), h_final (B, H, N, P)) float32."""
     bsz, l, h, p = xdt.shape
     if h0 is None:
-        h0 = torch.zeros((bsz, h, b_h.shape[-1], p), dtype=torch.float32,
+        h0 = torch.zeros((bsz, h, b.shape[-1], p), dtype=torch.float32,
                          device=xdt.device)
-    (xdt, da, b_h, c_h), q = pad_to_chunks(xdt, da, b_h, c_h, chunk)
-    y, h_final = ssd_chunked(xdt, da, b_h, c_h, h0.float(), q)
+    (xdt, da, b, c), q = pad_to_chunks(xdt, da, b, c, chunk)
+    y, h_final = ssd_chunked(xdt, da, b, c, h0.float(), q)
     return y[:, :l], h_final

@@ -87,12 +87,14 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def ssd_scan(xdt, da, b_h, c_h, h0=None, chunk: int = 256):
+def ssd_scan(xdt, da, b, c, h0=None, chunk: int = 256):
     """Chunked SSD core: xdt (B, L, H, P) inputs pre-multiplied by dt; da
     (B, L, H) raw per-position dt·A (negative; the cumsum happens per chunk
-    inside); b_h/c_h (B, L, H, N); all float32.  Returns (y (B, L, H, P),
-    h_final (B, H, N, P)) float32.  Runs the SSD kernel on CUDA tensors."""
-    return ssd_ops.ssd(xdt, da, b_h, c_h, h0=h0, chunk=chunk)
+    inside); b/c (B, L, G, N) per group, G dividing H (head h reads group
+    h // (H / G); the reference passes them expanded to heads, which is
+    G = H); all float32.  Returns (y (B, L, H, P), h_final (B, H, N, P))
+    float32.  Runs the SSD kernel on CUDA tensors."""
+    return ssd_ops.ssd(xdt, da, b, c, h0=h0, chunk=chunk)
 
 
 def ssm_apply(params: dict, x: torch.Tensor, cfg, initial=None):
@@ -126,11 +128,11 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg, initial=None):
     da = dt * a[None, None, :]
 
     xh = xc.reshape(bsz, l, h, p).float()
-    bh = _groups_to_heads(bc.reshape(bsz, l, cfg.ssm_groups, cfg.ssm_state).float(), h)
-    ch = _groups_to_heads(cc.reshape(bsz, l, cfg.ssm_groups, cfg.ssm_state).float(), h)
+    bg = bc.reshape(bsz, l, cfg.ssm_groups, cfg.ssm_state).float()
+    cg = cc.reshape(bsz, l, cfg.ssm_groups, cfg.ssm_state).float()
     xdt = xh * dt[..., None]
     h0 = initial["state"] if initial is not None else None
-    y, h_final = ssd_scan(xdt, da, bh, ch, h0=h0, chunk=cfg.ssm_chunk)
+    y, h_final = ssd_scan(xdt, da, bg, cg, h0=h0, chunk=cfg.ssm_chunk)
     y = y + params["d_skip"][None, None, :, None] * xh
     y = y.reshape(bsz, l, h * p).to(x.dtype)
 

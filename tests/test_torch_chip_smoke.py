@@ -201,3 +201,105 @@ def test_flash_cases_hold_a_split_launch_and_chunks_match_the_serving_slot():
     for sq, skv, start, valid in C.FLASH_CHUNKS:
         assert start + sq <= skv and start < valid <= skv
         assert (FK.plan(1, sq, skv, 9, 3, C.HD, valid)["splits"] > 1) == (start > 0)
+
+
+@pytest.mark.parametrize("shape,nbytes,causal,tc_ms,f32_ms,byte_ms", [
+    # Mamba2-1.3B prefill: b and c read for one group
+    (C.SSD_MAMBA, 156_237_824, 21_525_168_128, 0.1305, 0.3213, 0.0466),
+    # Zamba2-7B prefill: two groups
+    (C.SSD_ZAMBA, 489_160_704, 45_214_597_120, 0.2740, 0.6748, 0.1460),
+])
+def test_ssd_work_counts_b_and_c_per_group(shape, nbytes, causal, tc_ms, f32_ms, byte_ms):
+    """Phase 6's SSD bound: the bytes read b and c per group, and the
+    3xTF32 tensor-core bound (three times the causal operations at 495
+    TFLOP/s) beside the float32 CUDA-core one (67 TFLOP/s)."""
+    bsz, l, h, p, n, g = shape
+    got_bytes, products, full = C.ssd_work(bsz, l, h, p, n, 256, g)
+    assert (got_bytes, sum(products)) == (nbytes, causal) and full > causal
+    b = C.ssd_bounds(got_bytes, products)
+    assert b["bound_ms"] == pytest.approx(tc_ms, abs=5e-5) and b["bound_by"] == "operations"
+    assert b["f32_bound_ms"] == pytest.approx(f32_ms, abs=5e-5)
+    assert b["bound_flops"] == 3 * causal and b["bound_bytes"] == nbytes
+    assert b["causal_flops"] == causal
+    assert got_bytes / C.HBM_BYTES_PER_S * 1e3 == pytest.approx(byte_ms, abs=5e-5)
+    # per head, b and c would take H / G times their bytes
+    per_head, _, _ = C.ssd_work(bsz, l, h, p, n, 256, h)
+    assert per_head - got_bytes == 2 * 4 * bsz * l * (h - g) * n
+
+
+@pytest.mark.parametrize("shape,block_mflop,f32_ms,bf16_ms", [
+    # Mamba2-1.3B prefill (N 128): 63.06 against 42.02 MFLOP a (batch,
+    # chunk, head) block
+    (C.SSD_MAMBA, (63.062016, 42.024960), 0.1305, 0.0869),
+    # Zamba2-7B prefill (N 64)
+    (C.SSD_ZAMBA, (37.847040, 27.328512), 0.2740, 0.1979),
+])
+def test_ssd_bounds_take_the_passes_of_each_product(shape, block_mflop, f32_ms, bf16_ms):
+    """The tensor-core bound counts each product at the TF32 passes the
+    kernel takes on its inputs: 3xTF32 throughout on drawn float32 b and c;
+    on bf16-valued b and c one pass for the scores c.b, three for
+    scores.xdt, two for c.state and three for the chunk state.  Both stay
+    bound by operations, and the float32 CUDA-core bound does not move."""
+    bsz, l, h, p, n, g = shape
+    nbytes, products, _ = C.ssd_work(bsz, l, h, p, n, 256, g)
+    q, blocks = 256, bsz * h * (l // 256)
+    tri = q * (q + 1) // 2
+    assert products == (2 * tri * n * blocks, 2 * tri * p * blocks,
+                        2 * q * n * p * blocks, 2 * q * n * p * blocks)
+    f32 = C.ssd_bounds(nbytes, products, C.SSD_PASSES_F32)
+    bf16 = C.ssd_bounds(nbytes, products, C.SSD_PASSES_BF16_BC)
+    assert C.SSD_PASSES_F32 == (3, 3, 3, 3) and C.SSD_PASSES_BF16_BC == (1, 3, 2, 3)
+    assert f32 == C.ssd_bounds(nbytes, products)
+    for b, mflop, ms in ((f32, block_mflop[0], f32_ms), (bf16, block_mflop[1], bf16_ms)):
+        assert b["bound_flops"] / blocks / 1e6 == pytest.approx(mflop, abs=1e-6)
+        assert b["bound_ms"] == pytest.approx(ms, abs=5e-5) and b["bound_by"] == "operations"
+        assert b["bound_ms"] > nbytes / C.HBM_BYTES_PER_S * 1e3
+    assert bf16["bound_flops"] == (products[0] + 3 * products[1] + 2 * products[2]
+                                   + 3 * products[3])
+    assert bf16["f32_bound_ms"] == f32["f32_bound_ms"]
+    assert bf16["causal_flops"] == f32["causal_flops"] == sum(products)
+
+
+def test_ssd_cases_hold_grouped_per_head_and_both_prefills():
+    """Phase 2 checks the kernel with b and c per group at both models'
+    prefill shapes, per head (the reference's contract), ragged and below
+    one chunk; phase 6 times the two prefill shapes."""
+    cases = {name: (shape, l, h0) for name, shape, l, h0 in C.ssd_cases()}
+    assert cases["mamba2"][0] == C.SSD_MAMBA and cases["zamba2"][0] == C.SSD_ZAMBA
+    assert cases["per-head"][0][5] == cases["per-head"][0][2]  # G = H
+    assert C.SSD_MAMBA[5] == 1 and C.SSD_ZAMBA[5] == 2
+    assert cases["ragged"][1] % 256 and cases["short"][1] < 256 and not cases["short"][2]
+    mamba, zamba = get_config("mamba2-1.3b"), get_config("zamba2-7b")
+    for cfg, (bsz, l, h, p, n, g) in ((mamba, C.SSD_MAMBA), (zamba, C.SSD_ZAMBA)):
+        assert (h, p, n, g) == (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups)
+    assert C.SSD_MAMBA[:2] == (C.SSM_B, C.SSM_L) and C.SSD_ZAMBA[:2] == (C.ZAMBA_B, C.ZAMBA_L)
+
+
+def test_ssd_case_draws_b_and_c_per_group():
+    gen = torch.Generator().manual_seed(0)
+    xdt, da, b, c, h0 = C.ssd_case(torch, "cpu", gen, (1, 40, 6, 8, 4, 3), l=20, h0=False)
+    assert xdt.shape == (1, 20, 6, 8) and da.shape == (1, 20, 6)
+    assert b.shape == c.shape == (1, 20, 3, 4) and h0 is None
+    assert bool((da < 0).all())
+
+
+def test_precision_study_imports_nothing_of_jax_or_the_reference():
+    tree = ast.parse((REPO / "ssd_precision_study.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}, roots
+
+
+def test_precision_study_refuses_to_run_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the refusal path is for CPU-only hosts")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, str(REPO / "ssd_precision_study.py")],
+                          capture_output=True, text=True, env=env, cwd=REPO, timeout=120)
+    assert proc.returncode == 2
+    assert '"cases"' not in proc.stdout

@@ -10,8 +10,11 @@ matmul takes exact bf16 x bf16 products in float32 on both sides; the
 kernel sums them on the tensor cores, 16 rows of K at a time within each
 split of K and then the splits in order, the plain version through cuBLAS
 in an order of its own, so it is held to atol = rtol = 1e-4.  The SSD scan is
-float32 on both sides and differs only in the order of its sums: it is held
-to 1e-4 of the largest output (about 1e-5 measured at full width).  Flash
+float32 on both sides: the kernel takes its products on the tensor cores
+as 3xTF32 (each operand split into a TF32 high part and its remainder,
+the remainder times remainder term dropped, about 2^-20 of a product) and
+sums in another order: it is held to 1e-4 of the largest output (about
+1e-5 measured at full width).  Flash
 attention rounds p to bf16 at the running max of its 128-key tiles (within
 a split of the keys, whose partials a second kernel merges), the plain
 version at that of its 512-key chunks, and the float32 sums run in another
@@ -93,6 +96,18 @@ def test_cuda_bitplane_matmul_matches_plain_on_card(m, k, n):
     torch.cuda.synchronize()
 
 
+def _ssd_draw(dev, gen, b, l, h, p, n, g, h0=True):
+    """dt in [1e-3, 1e-1], A in [-16, -1] as ``ssm_params`` draws them; b
+    and c per group."""
+    a = -(torch.rand((h,), generator=gen, device=dev) * 15 + 1)
+    dt = torch.rand((b, l, h), generator=gen, device=dev) * 0.099 + 1e-3
+    xdt = torch.randn((b, l, h, p), generator=gen, device=dev) * dt[..., None]
+    bg = torch.randn((b, l, g, n), generator=gen, device=dev)
+    cg = torch.randn((b, l, g, n), generator=gen, device=dev)
+    state = torch.randn((b, h, n, p), generator=gen, device=dev) if h0 else None
+    return xdt, dt * a, bg, cg, state
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,h,p,n,chunk,h0", [
     (4, 1024, 64, 64, 128, 256, True),   # Mamba2-1.3B prefill
@@ -107,20 +122,58 @@ def test_cuda_ssd_matches_plain_on_card(b, l, h, p, n, chunk, h0):
     would overflow."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(l * h + n)
-    a = -(torch.rand((h,), generator=gen, device=dev) * 15 + 1)
-    dt = torch.rand((b, l, h), generator=gen, device=dev) * 0.099 + 1e-3
-    xdt = torch.randn((b, l, h, p), generator=gen, device=dev) * dt[..., None]
-    b_h = torch.randn((b, l, h, n), generator=gen, device=dev)
-    c_h = torch.randn((b, l, h, n), generator=gen, device=dev)
-    state = torch.randn((b, h, n, p), generator=gen, device=dev) if h0 else None
+    case = _ssd_draw(dev, gen, b, l, h, p, n, h, h0)  # one group a head
     SK.reset_launches()
-    y, hf = SO.ssd(xdt, dt * a, b_h, c_h, state, chunk=chunk)
+    y, hf = SO.ssd(*case, chunk=chunk)
     assert SK.LAUNCHES["ssd"] == 1
-    y_r, hf_r = SR.ssd_ref(xdt, dt * a, b_h, c_h, state, chunk=chunk)
+    y_r, hf_r = SR.ssd_ref(*case, chunk=chunk)
     torch.cuda.synchronize()
     assert torch.isfinite(y).all() and torch.isfinite(hf).all()
     assert (y - y_r).abs().max() <= SSD_REL_TOL * y_r.abs().max()
     assert (hf - hf_r).abs().max() <= SSD_REL_TOL * hf_r.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,p,n,g,chunk", [
+    (4, 1024, 64, 64, 128, 1, 256),   # Mamba2-1.3B prefill, b and c per group
+    (2, 1024, 112, 64, 64, 2, 256),   # Zamba2-7B widths, two groups
+    (1, 300, 6, 8, 4, 3, 100),        # three groups of two heads, chunk 100
+    (2, 512, 4, 128, 64, 2, 256),     # P 128, the widest the kernel takes
+])
+@pytest.mark.parametrize("bc", ["float32", "bf16-valued", "c bf16-valued"])
+def test_cuda_ssd_grouped_matches_plain_on_card(b, l, h, p, n, g, chunk, bc):
+    """b and c per group, as the model passes them: the kernel reads head
+    h's group h // (H / G); the plain version expands them to heads.  b and
+    c drawn in float32 (every product 3xTF32), rounded to bf16 values as
+    the model's are (the scores one TF32 product, c.state two), and c alone
+    rounded (c.state two products, the scores three)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(l * h + n + g)
+    xdt, da, bg, cg, h0 = _ssd_draw(dev, gen, b, l, h, p, n, g)
+    if bc != "float32":
+        cg = cg.bfloat16().float()
+    if bc == "bf16-valued":
+        bg = bg.bfloat16().float()
+    case = (xdt, da, bg, cg, h0)
+    SK.reset_launches()
+    y, hf = SO.ssd(*case, chunk=chunk)
+    assert SK.LAUNCHES["ssd"] == 1
+    y_r, hf_r = SR.ssd_ref(*case, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(hf).all()
+    assert (y - y_r).abs().max() <= SSD_REL_TOL * y_r.abs().max()
+    assert (hf - hf_r).abs().max() <= SSD_REL_TOL * hf_r.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,q", [(128, 64, 256), (64, 64, 256)])
+def test_cuda_ssd_shared_memory_fits_two_blocks_an_sm(n, p, q):
+    """At both models' prefill widths two blocks of the chunk-state kernel
+    and two of the output kernel fit an SM's shared memory, as the source
+    sizes them."""
+    _cuda()
+    for which in (0, 1):
+        assert 2 * SK._library().ssd_smem_bytes(which, n, p, q) <= SK.MAX_SMEM_BYTES
 
 
 @pytest.mark.cuda
