@@ -21,9 +21,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
    keep-0 pages, ragged valid lengths and one row with nothing valid; and
    at Yi-9B's head shape (B=2, S=4096, Hkv=4, rep=8, hd=128): keeps {0, 4,
    8, 16}, one row with nothing valid.
-   Pack and unpack bit for bit at the decode token rows, one slot's full
-   cache per layer (keep 16, 12, 8, 4) and an odd length; the bit-plane
-   matmul at the quickstart's shape and every SmolLM-135M projection; the
+   Pack and unpack bit for bit: the flat kernels at 1-, 2- and 4-byte
+   containers, at one octet, a ragged last plane word, the decode token
+   rows, one slot's full cache per layer and an odd length, keeps down to
+   0; the KV entry points (K and V in one launch, in place) at the decode
+   append (B 8, positions 0, mid, S - 1, past S and below 0, clamped),
+   prefill chunks of 256 rows at offset 0, mid and the end, and the unpack
+   of a layer's slot and of one slot's layer range at keep 16, 12, 8, 4
+   and 0; the bit-plane matmul at the quickstart's shape and every SmolLM-135M projection; the
    SSD scan at the full-width Mamba2-1.3B prefill shape (B=4, L=1024,
    H=64, P=64, N=128, Q=256) with a nonzero initial state and realistic
    dt·A, b and c per group (G=1) as the model passes them and per head
@@ -50,7 +55,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    re-activated page, as the backend counts them, and no decode); a
    torch.profiler window of steady decode steps (device
    kernel time against host wall time, and launches per decode step);
-   the launches of one prefill chunk (30 flash launches, one a layer); then one teacher-forced decode step
+   the launches of one prefill chunk (exactly 30 flash launches, 30 packs
+   and 30 unpacks, one each a layer) and of one ``model.decode`` step on a
+   copy of the snapshot (30 packs, no unpack); a digest of each timed
+   run's greedy tokens and integer counters; then one teacher-forced decode step
    from a snapshot of the serving cache, three ways (fused, rung, plain),
    whose logits must agree.  The two serving runs are held against each
    other in two untimed check runs that repeat them (the same tokens and
@@ -98,7 +106,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
    computes the same function (device time too for the paged rows and the
    matmul), printed as one ``{"kernels": [...]}`` line (nine rows: every
    kernel of the port; the matmul row carries its Zamba2-7B MLP rows, cold,
-   under ``shapes``; each paged row its long, cold decode rows: B 8, S 4096
+   under ``shapes``; the pack row the decode append (K+V of B 8 into a
+   1,024-row cache) beside the parent's route (a flat pack a stream and an
+   indexed write), and under ``shapes`` a prefill chunk's append, the
+   memory tier's 256-page span and a cold m = 2^24; the unpack row one
+   slot's K+V (keep 16) beside the parent's route, and under ``shapes``
+   phase 3c's longest ``get_sequence`` and the cold m = 2^24 at keep 16 and
+   8; both with an empty kernel's device time, the launch floor; each
+   paged row its long, cold decode rows: B 8, S 4096
    at Yi-9B's head shape, every page at keep 16, 8 and 4, beside SDPA with
    ``enable_gqa`` over the dense bf16 cache; the flash row its SmolLM
    prefill chunks, 64 rows at offsets 0 and 960 and 512 rows at offset
@@ -500,9 +515,38 @@ def check_paged_case(torch, case, empty: int, rungs) -> tuple:
     return float((got - want).abs().max()), rung_err
 
 
+def int_err(got, want) -> float:
+    """Largest |got - want| of two integer (or raw-bit) tensors, as int64."""
+    import torch
+
+    if got.dtype == torch.bfloat16:
+        got, want = got.view(torch.int16), want.view(torch.int16)
+    return float((got.long() - want.long()).abs().max()) if got.numel() else 0.0
+
+
+# The bit-plane cases of phase 2: flat containers (width in bytes, bits) and
+# lengths (one octet; m/8 = 37, a ragged last plane word; the decode token
+# rows, one slot's cache per layer, and a length that is a multiple of 8
+# but not of the reference's 32768-value block); the decode append's
+# positions (0, mid, S - 1, past S and negative, clamped as the reference
+# clips; idle rows at their own position); prefill chunk offsets (0, mid,
+# the end) and unpack keeps
+BITPLANE_WIDTHS = ((1, 8), (2, 16), (2, 12), (4, 32))
+BITPLANE_LENGTHS = (8, 8 * 37, B * HKV * HD, S * HKV * HD, 8 * 12345)
+APPEND_POS = (0, S // 2, S - 1, S + 7, -3, 5, 700, 1)
+CHUNK = 256
+CHUNK_STARTS = (0, S // 2 - 64, S - CHUNK)
+UNPACK_KEEPS = (16, 12, 8, 4, 0)
+
+
 def check_bitplane_kernels(torch, dev) -> dict:
     """Pack and unpack bit for bit, the matmul within MATMUL_ATOL/RTOL,
-    each against its plain version on the same CUDA inputs."""
+    each against its plain version on the same CUDA inputs.  The flat
+    kernels at every container and the cases above; the KV entry points,
+    K and V in one launch, on the serving cache's views: the decode append
+    into a layer, a prefill chunk into one slot, and the unpack of a
+    layer's slot (a prefill chunk's read) and of a layer range of one slot
+    (the memory tier's read) at each keep."""
     from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.bitplane import ref as BR
     from repro_torch.kernels.bitplane_matmul import kernel as MK
@@ -510,19 +554,68 @@ def check_bitplane_kernels(torch, dev) -> dict:
     from repro_torch.kernels.bitplane_matmul import ref as MR
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    # decode token rows, one slot's full cache per layer, a length that is
-    # a multiple of 8 but not of the reference's 32768-value block
-    for m in (B * HKV * HD, S * HKV * HD, 8 * 12345):
-        u = torch.randint(0, 2**16, (m,), generator=gen, device=dev,
-                          dtype=torch.int32).to(torch.int16)
-        planes = BK.pack(u, BITS)
-        if not torch.equal(planes, BR.pack_ref(u, BITS)):
-            raise AssertionError(f"bitplane_pack differs from plain at m={m}")
-        for keep in (16, 12, 8, 4):
-            got = BK.unpack(planes[:keep].contiguous(), BITS, keep, torch.int16)
-            if not torch.equal(got, BR.unpack_ref(planes, BITS, keep, torch.int16)):
-                raise AssertionError(f"bitplane_unpack differs from plain at m={m}, keep={keep}")
-    errs = {"bitplane_pack": 0.0, "bitplane_unpack": 0.0}
+    err = {"bitplane_pack": 0.0, "bitplane_unpack": 0.0}
+
+    def held(name, what, got, want):
+        e = int_err(got, want)
+        err[name] = max(err[name], e)
+        if got.dtype == torch.bfloat16:  # raw bits: a NaN pattern equals itself
+            got, want = got.view(torch.int16), want.view(torch.int16)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from plain {what}: max |kernel - plain| {e}")
+
+    for width, bits in BITPLANE_WIDTHS:
+        dtype = BK.CONTAINERS[width]
+        for m in BITPLANE_LENGTHS:
+            u = torch.randint(0, 1 << bits, (m,), generator=gen, device=dev,
+                              dtype=torch.int64).to(dtype)
+            planes = BK.pack(u, bits)
+            held("bitplane_pack", f"at m={m}, {bits} bits in {dtype}", planes,
+                 BR.pack_ref(u, bits))
+            for keep in sorted({bits, 12, 8, 4, 0} & set(range(bits + 1)), reverse=True):
+                got = BK.unpack(planes[:keep].contiguous(), bits, keep, dtype)
+                held("bitplane_unpack", f"at m={m}, {bits} bits in {dtype}, keep {keep}",
+                     got, BR.unpack_ref(planes, bits, keep, dtype))
+
+    def planes_like():
+        return torch.randint(0, 256, (2, BITS, B, S, HKV, HD // 8), generator=gen,
+                             device=dev, dtype=torch.int32).to(torch.uint8)
+
+    def rows(c):
+        return [torch.randn((B if c == 1 else 1, c, HKV, HD), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2)]
+
+    caches = [planes_like(), planes_like()]
+    plain = [c.clone() for c in caches]
+    k, v = rows(1)
+    pos = torch.tensor(APPEND_POS, device=dev, dtype=torch.int32)
+    BK.reset_launches()
+    BK.pack_kv_into(k, v, caches[0][1], caches[1][1], pos)
+    BR.pack_kv_into_ref(k, v, plain[0][1], plain[1][1], pos)
+    for start in CHUNK_STARTS:
+        k, v = rows(CHUNK)
+        BK.pack_kv_into(k, v, *(c.narrow(2, 3, 1)[0] for c in caches), start)
+        BR.pack_kv_into_ref(k, v, *(c.narrow(2, 3, 1)[0] for c in plain), start)
+    for c, want in zip(caches, plain):
+        held("bitplane_pack", f"in the KV append at positions {APPEND_POS} and chunks "
+             f"of {CHUNK} at {CHUNK_STARTS}", c, want)
+    if BK.LAUNCHES["bitplane_pack"] != 1 + len(CHUNK_STARTS):
+        raise AssertionError(f"pack_kv_into launched {BK.LAUNCHES}: one launch a call")
+    for keep in UNPACK_KEEPS:
+        for what, view in (("a layer's slot", lambda c: c.narrow(2, 3, 1)[1]),
+                           ("one slot's layers", lambda c: c[:, :, 5, 100:900].movedim(1, 0))):
+            views = [view(c) for c in caches]
+            held("bitplane_unpack", f"of {what} at keep {keep}", BK.unpack_kv_pair(*views, keep),
+                 BR.unpack_kv_pair_ref(*views, keep))
+    if BK.LAUNCHES["bitplane_unpack"] != 2 * len(UNPACK_KEEPS):
+        raise AssertionError(f"unpack_kv_pair launched {BK.LAUNCHES}: one launch a call")
+    torch.cuda.synchronize()
+    log(f"phase 2: pack/unpack match plain bit for bit (max |kernel - plain| {err}): flat "
+        f"at (width, bits) {BITPLANE_WIDTHS}, m {BITPLANE_LENGTHS}, keeps down to 0; "
+        f"K and V in one launch: the decode append at {APPEND_POS} (S {S}), prefill chunks "
+        f"of {CHUNK} at {CHUNK_STARTS}, unpack of a slot and of a layer range at keeps "
+        f"{UNPACK_KEEPS}")
+    errs = dict(err)
     worst = 0.0
     for m, k, n in [(8, 1024, 1024), *ZAMBA_MLP] + [(m, k, n) for m in (8, 128)
                                                     for k, n in PROJECTIONS]:
@@ -1120,6 +1213,13 @@ def profile_decode(torch, model, params, n: int = 8) -> dict:
     rows = device_rows(steps, "SmolLM decode steps")
     dev_us = [(getattr(e, "self_device_time_total", 0), e.key) for e in rows]
     busy_ms = sum(t for t, _ in dev_us) / n / 1e3
+    # the parent's append made three a layer (a row index, two index_puts)
+    index = {e.key[:64]: e.count / n for e in rows if "index" in e.key.lower()}
+    log(f"phase 3 profile: indexing kernels per decode step (none from the plane "
+        f"cache's append): {index}")
+    if sum(index.values()) >= model.cfg.n_layers:
+        raise AssertionError(f"{sum(index.values())} indexing kernels a decode step: the "
+                             f"plane cache's append still indexes")
     top = sorted(dev_us, reverse=True)[:6]
     if busy_ms <= 0:
         log("phase 3 profile: the profiler recorded no device time (not measured)")
@@ -1146,13 +1246,48 @@ def prefill_chunk_launches(torch, model, params, cache) -> dict:
     model.prefill_chunk(params, tokens, c, 0, 0, 255)
     torch.cuda.synchronize()
     launches = {**BK.LAUNCHES, **FK.LAUNCHES}
-    if launches["bitplane_pack"] <= 0 or launches["bitplane_unpack"] <= 0:
-        raise AssertionError(f"a prefill chunk ran no pack/unpack kernel: {launches}")
-    if launches["flash_attention"] != model.cfg.n_layers:
-        raise AssertionError(f"a prefill chunk launched flash {launches['flash_attention']} "
-                             f"times, expected {model.cfg.n_layers}")
+    n = model.cfg.n_layers
+    expect_launches("a prefill chunk", launches, {"bitplane_pack": n, "bitplane_unpack": n,
+                                                  "flash_attention": n})
     log(f"phase 3 launches per prefill chunk (model): {launches}")
     return launches
+
+
+def expect_launches(what: str, launches: dict, expect: dict) -> None:
+    """Fail unless ``launches`` holds exactly the counts of ``expect``."""
+    got = {k: launches[k] for k in expect}
+    if got != expect:
+        raise AssertionError(f"{what} launched {got}, expected {expect}")
+
+
+def decode_launches(torch, model, params, cache, tok, keeps) -> dict:
+    """Kernel launches of one ``model.decode`` step on a copy of the serving
+    cache: K and V of every layer packed into the plane cache in one launch
+    (no index_put), nothing unpacked."""
+    from repro_torch.kernels.bitplane import kernel as BK
+
+    c = {k: v.clone() for k, v in cache.items()}
+    torch.cuda.synchronize()
+    BK.reset_launches()
+    model.decode(params, tok, c, keeps=keeps)
+    torch.cuda.synchronize()
+    launches = dict(BK.LAUNCHES)
+    expect_launches("a model decode step", launches,
+                    {"bitplane_pack": model.cfg.n_layers, "bitplane_unpack": 0})
+    log(f"phase 3 launches per model decode step: {launches}")
+    return launches
+
+
+def phase3_digest(reqs, rep) -> str:
+    """A digest of a serving run's greedy tokens and its integer counters
+    (bytes, pages, steps: everything but times and rates), equal for two
+    runs that generated and moved the same."""
+    import hashlib
+
+    counters = {k: v for k, v in sorted(rep.items())
+                if isinstance(v, int) and not isinstance(v, bool)}
+    text = json.dumps([[list(map(int, r.output)) for r in reqs], counters])
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
 def teacher_forced(torch, model, params, cache, tok, keeps) -> None:
@@ -1266,9 +1401,13 @@ def memory_tier_round_trip(torch, cache, n_layers: int = 4, min_pages: int = 512
         f"ms/page (CPU store); {5 * n} reads from each store in {gets:.2f} s; launches of "
         f"the puts {put_launches}, of the card's gets {get_launches}; equal controller "
         f"totals {totals}")
+    # the longest sequence's get unpacks its pages' planes in one launch:
+    # a page is one group of 16 tokens x its channels
+    get_values = max(-(-kv.shape[0] // PAGE_TOKENS) * PAGE_TOKENS * kv.shape[1]
+                     for kv in seqs.values())
     return {"decode_launches": get_launches["exp_delta_decode"],
             "encode_launches": put_launches["exp_delta_encode"], "pages": pages,
-            "sequences": n, "gets": 5 * n}
+            "sequences": n, "gets": 5 * n, "get_values": get_values}
 
 
 def run_quickstart(torch) -> dict:
@@ -1950,51 +2089,197 @@ def bound_ms(nbytes: float, nflops: float, flops_per_s: float) -> tuple:
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def time_bitplane_kernels(torch, dev, errs, serve_launches, per_step, prefill,
-                          qs_launches) -> list:
-    """Pack at the decode token rows (one K or V row per slot, B=8), unpack
-    at one slot's full cache per layer (what a prefill chunk unpacks, keep
-    16, walking 160 distinct plane buffers so they come from HBM), and the
-    matmul (``time_matmul``) at the quickstart's shape at keep 8 (warm) and
-    at the Zamba2-7B MLP up-projection, cold: M 8 at keep 16, 12, 8 and 4,
-    M 128 at keep 8.  Each is timed twice: CUDA events around back-to-back
-    calls (``ms``; at these sizes the host's issue time per call can exceed
-    the kernel's) and the profiler's device time of the kernels alone
-    (``device_ms``)."""
+def bitplane_bytes(values: int, width: int, planes: int) -> int:
+    """Bytes a pack or unpack must move: ``values`` of ``width`` bytes read
+    or written once, and ``planes`` planes of one bit each of them."""
+    return values * width + planes * values // 8
+
+
+def bitplane_row(torch, what: str, run, plain, match: str, nbytes: int, iters: int = 200,
+                 plain_iters: int = 20, parent=None) -> dict:
+    """One shape of a pack or unpack kernel: CUDA events around back-to-back
+    calls and the profiler's device time of the kernel (``match``), beside
+    the byte bound (pack and unpack move bits with a few integer operations
+    a value and no floating point: bytes bound them), the plain version
+    and, with ``parent``, the parent's route for the same work (every
+    kernel of it, device time)."""
+    ms, dev_ms = cuda_time_ms(run, iters=iters), device_ms(run, match, iters)
+    p_ms = cuda_time_ms(plain, iters=plain_iters, warmup=1)
+    p_dev = device_ms(plain, "", plain_iters)
+    b_ms, b_by = bound_ms(nbytes, 0, BF16_TENSOR_FLOPS)
+    row = {"shape": what, "ms": ms, "device_ms": dev_ms, "plain_ms": p_ms,
+           "plain_device_ms": p_dev, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_bytes": nbytes, "bound_share": b_ms / dev_ms}
+    if parent is not None:
+        row["parent_route_ms"] = cuda_time_ms(parent, iters=iters)
+        row["parent_route_device_ms"] = device_ms(parent, "", iters)
+        row["parent_route_kernels"] = kernels_per_call(parent, "")
+    return row
+
+
+def parent_append(torch, k, v, kp, vp, lens) -> None:
+    """The parent's decode append (the attention layer's before the KV
+    entry points): a row index and a clamp, a flat pack of each stream into
+    a fresh plane tensor, and an indexed write of each into the cache."""
+    from repro_torch.kernels.paged_attention.ops import pack_kv_planes
+
+    rows = torch.arange(kp.shape[1], device=kp.device)
+    slot = torch.clamp(lens, 0, kp.shape[2] - 1).long()
+    kp[:, rows, slot] = pack_kv_planes(k, kp.shape[0])[:, :, 0]
+    vp[:, rows, slot] = pack_kv_planes(v, kp.shape[0])[:, :, 0]
+
+
+def parent_chunk_append(k, v, kp, vp, start: int) -> None:
+    """The parent's prefill-chunk append: a flat pack of each stream, then a
+    copy into the slice of the cache."""
+    from repro_torch.kernels.paged_attention.ops import pack_kv_planes
+
+    end = start + k.shape[1]
+    kp[:, :, start:end] = pack_kv_planes(k, kp.shape[0])
+    vp[:, :, start:end] = pack_kv_planes(v, kp.shape[0])
+
+
+def parent_unpack_pair(kp, vp, keep: int) -> tuple:
+    """The parent's unpack of a slot's K and V: a flat unpack of each (the
+    slot view is no contiguous plane block, so each is copied first)."""
+    from repro_torch.kernels.paged_attention.ops import unpack_kv
+
+    return unpack_kv(kp, keep, BITS), unpack_kv(vp, keep, BITS)
+
+
+COLD_VALUES = 1 << 24
+SPAN_VALUES = 256 * 16 * HKV * HD
+
+
+def time_bitplane_kernels(torch, dev, errs, serve_launches, per_step, prefill, decode,
+                          rt, qs_launches) -> list:
+    """The pack and unpack kernels at the shapes the main path gives them,
+    each beside its byte bound and plain version: the decode append (K and
+    V of B 8 into one layer's 1,024-row cache, clamped positions) and a
+    256-row prefill chunk's append, both beside the parent's route; the
+    unpack of one slot's K and V (what a prefill chunk reads: keep 16, over
+    10 layers x 8 slots of a stacked cache, 63 MB, so they come from HBM)
+    beside the parent's route; the memory tier's flat pack of a 256-page span
+    and ``get_sequence``'s flat unpack of phase 3c's longest sequence; and a
+    cold shape where bytes bind, m = 2^24 int16 values, buffers rotated
+    beyond L2: pack, unpack at keep 16 and 8.  An empty kernel's device
+    time is printed as the launch floor.  Then the matmul (``time_matmul``)
+    at the quickstart's shape at keep 8 (warm) and at the Zamba2-7B MLP
+    up-projection, cold: M 8 at keep 16, 12, 8 and 4, M 128 at keep 8.
+    Each is timed twice: CUDA events around back-to-back calls (``ms``; at
+    these sizes the host's issue time per call can exceed the kernel's)
+    and the profiler's device time of the kernels alone (``device_ms``)."""
     from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.bitplane import ref as BR
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    m_dec = B * HKV * HD
-    rows = [torch.randint(0, 2**16, (m_dec,), generator=gen, device=dev,
-                          dtype=torch.int32).to(torch.int16) for _ in range(8)]
-    pack = lambda i: BK.pack(rows[i % 8], BITS)  # noqa: E731
-    pack_plain = lambda i: BR.pack_ref(rows[i % 8], BITS)  # noqa: E731
-    p_ms, p_dev = cuda_time_ms(pack, iters=200), device_ms(pack, "::pack_kernel")
-    p_plain, p_plain_dev = cuda_time_ms(pack_plain, iters=50), device_ms(pack_plain)
-    # pack and unpack move bits with integer operations and no floating
-    # point: their bound is the bytes
-    p_bound, p_by = bound_ms(m_dec * 2 + BITS * m_dec // 8, 0, BF16_TENSOR_FLOPS)
+    pack_k, unpack_k = "bitplane_pack_kernel", "bitplane_unpack_kernel"
+    floor_ms = cuda_time_ms(lambda i: BK.launch_empty(), iters=200)
+    floor_dev = device_ms(lambda i: BK.launch_empty(), "bitplane_empty_kernel", 200)
+    r = HKV * HD
 
-    m_slot = S * HKV * HD
-    bufs = torch.randint(0, 256, (160, BITS, m_slot // 8), generator=gen,
-                         device=dev, dtype=torch.int32).to(torch.uint8)
-    unpack = lambda i: BK.unpack(bufs[i % 160], BITS, BITS, torch.int16)  # noqa: E731
-    unpack_plain = lambda i: BR.unpack_ref(bufs[i % 160], BITS, BITS, torch.int16)  # noqa: E731
-    u_ms, u_dev = cuda_time_ms(unpack, iters=320), device_ms(unpack, "::unpack_kernel", 160)
-    u_plain, u_plain_dev = cuda_time_ms(unpack_plain, iters=20), device_ms(unpack_plain, "", 20)
-    u_bound, u_by = bound_ms(BITS * m_slot // 8 + m_slot * 2, 0, BF16_TENSOR_FLOPS)
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def rand_planes(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
+
+    # decode append: 8 K and V inputs, one layer's planes
+    kv = [(randn(B, 1, HKV, HD), randn(B, 1, HKV, HD)) for _ in range(8)]
+    kp, vp = rand_planes(BITS, B, S, HKV, HD // 8), rand_planes(BITS, B, S, HKV, HD // 8)
+    lens = torch.tensor(APPEND_POS, device=dev, dtype=torch.int32)
+    append = bitplane_row(
+        torch, f"decode append, K+V of B {B} into {S} rows",
+        lambda i: BK.pack_kv_into(*kv[i % 8], kp, vp, lens),
+        lambda i: BR.pack_kv_into_ref(*kv[i % 8], kp, vp, lens), pack_k,
+        bitplane_bytes(2 * B * r, 2, BITS) + 4 * B,
+        parent=lambda i: parent_append(torch, *kv[i % 8], kp, vp, lens))
+    kernels = kernels_per_call(lambda i: BK.pack_kv_into(*kv[0], kp, vp, lens), "")
+    if kernels != 1:
+        raise AssertionError(f"the decode append launched {kernels} kernels, not one")
+    append["kernels"] = kernels
+    # prefill chunk append into slot 3 of one layer
+    chunk_kv = [(randn(1, CHUNK, HKV, HD), randn(1, CHUNK, HKV, HD)) for _ in range(4)]
+    slot = kp.narrow(1, 3, 1), vp.narrow(1, 3, 1)
+    chunk = bitplane_row(
+        torch, f"prefill chunk append, K+V of {CHUNK} rows at {S // 2 - 64}",
+        lambda i: BK.pack_kv_into(*chunk_kv[i % 4], *slot, S // 2 - 64),
+        lambda i: BR.pack_kv_into_ref(*chunk_kv[i % 4], *slot, S // 2 - 64), pack_k,
+        bitplane_bytes(2 * CHUNK * r, 2, BITS),
+        parent=lambda i: parent_chunk_append(*chunk_kv[i % 4], *slot, S // 2 - 64))
+    del kp, vp, slot
+    # one slot's K and V, all 16 planes (a prefill chunk's read), over 10
+    # layers x 8 slots
+    stacked = [rand_planes(10, BITS, B, S, HKV, HD // 8) for _ in range(2)]
+
+    def slot_views(i):
+        return [c.narrow(2, (i // 10) % B, 1)[i % 10] for c in stacked]
+
+    slot_unpack = bitplane_row(
+        torch, f"slot unpack, K+V of {S} rows, keep 16",
+        lambda i: BK.unpack_kv_pair(*slot_views(i), BITS),
+        lambda i: BR.unpack_kv_pair_ref(*slot_views(i), BITS), unpack_k,
+        2 * bitplane_bytes(S * r, 2, BITS), iters=320,
+        parent=lambda i: parent_unpack_pair(*slot_views(i), BITS))
+    del stacked
+    # the memory tier: a span's flat pack (in L2, as its caller has just
+    # made the values) and get_sequence's flat unpack (just copied in)
+    span = torch.randint(0, 2**16, (SPAN_VALUES,), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.int16)
+    span_pack = bitplane_row(
+        torch, f"memory tier span pack, m {SPAN_VALUES}", lambda i: BK.pack(span, BITS),
+        lambda i: BR.pack_ref(span, BITS), pack_k, bitplane_bytes(SPAN_VALUES, 2, BITS))
+    get_planes = rand_planes(BITS, rt["get_values"] // 8)
+    get_unpack = bitplane_row(
+        torch, f"get_sequence unpack, m {rt['get_values']}, keep 16",
+        lambda i: BK.unpack(get_planes, BITS, BITS, torch.int16),
+        lambda i: BR.unpack_ref(get_planes, BITS, BITS, torch.int16), unpack_k,
+        bitplane_bytes(rt["get_values"], 2, BITS))
+    del span, get_planes
+    # cold: three buffers of 2^24 values and of their planes, outputs kept
+    # alive over three calls, so each call's 67 MB miss the 50 MB L2
+    vals = [torch.randint(0, 2**16, (COLD_VALUES,), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int16) for _ in range(3)]
+    planes = [BK.pack(u, BITS) for u in vals]
+    outs = [None] * 3
+
+    def keep_out(i, t):
+        outs[i % 3] = t
+
+    cold = [bitplane_row(
+        torch, f"cold pack, m {COLD_VALUES}",
+        lambda i: keep_out(i, BK.pack(vals[i % 3], BITS)),
+        lambda i: keep_out(i, BR.pack_ref(vals[i % 3], BITS)), pack_k,
+        bitplane_bytes(COLD_VALUES, 2, BITS), iters=60, plain_iters=2)]
+    for keep in (BITS, 8):
+        cold.append(bitplane_row(
+            torch, f"cold unpack, m {COLD_VALUES}, keep {keep}",
+            lambda i, keep=keep: keep_out(i, BK.unpack(planes[i % 3], BITS, keep, torch.int16)),
+            lambda i, keep=keep: keep_out(i, BR.unpack_ref(planes[i % 3], BITS, keep,
+                                                           torch.int16)),
+            unpack_k, bitplane_bytes(COLD_VALUES, 2, keep), iters=60, plain_iters=2))
+    del vals, planes, outs
+    torch.cuda.empty_cache()
+    for row in (append, chunk, slot_unpack, span_pack, get_unpack, *cold):
+        parent = "" if "parent_route_ms" not in row else (
+            f"; parent route {row['parent_route_ms']:.4f} / {row['parent_route_device_ms']:.4f} "
+            f"({row['parent_route_kernels']} kernels)")
+        log(f"phase 6: bitplane {row['shape']}: {row['ms']:.4f} / {row['device_ms']:.4f} ms "
+            f"(events / device); bound {row['bound_ms']:.6f} ms by {row['bound_by']} "
+            f"({row['bound_bytes']} B), {row['bound_share']:.3f} of it; launch floor "
+            f"{floor_ms:.4f} / {floor_dev:.4f}; plain {row['plain_ms']:.4f} / "
+            f"{row['plain_device_ms']:.4f}{parent}")
+    cold_ratio = cold[2]["device_ms"] / cold[1]["device_ms"]
+    log(f"phase 6: bitplane cold unpack device time keep 8 / keep 16 = {cold_ratio:.3f} "
+        f"(bytes {cold[2]['bound_bytes'] / cold[1]['bound_bytes']:.3f})")
+    floor = {"launch_floor_ms": floor_ms, "launch_floor_device_ms": floor_dev}
 
     qs = time_matmul(torch, dev, gen, 8, 1024, 1024, (8,), warm=True)[0]
     shapes = [row for m, k, n in ZAMBA_MLP
               for row in time_matmul(torch, dev, gen, m, k, n, (16, 12, 8, 4) if m == 8 else (8,))]
     by_keep = {r["keep"]: r for r in shapes if r["m"] == 8}
     ratio = by_keep[16]["device_ms"] / by_keep[8]["device_ms"]
-    log(f"phase 6 (ms per call, CUDA events / profiler device time): bitplane_pack "
-        f"{p_ms:.4f} / {p_dev:.4f} at m={m_dec} (bound {p_bound:.6f}, plain "
-        f"{p_plain:.4f} / {p_plain_dev:.4f}); bitplane_unpack {u_ms:.4f} / {u_dev:.4f} "
-        f"at m={m_slot} keep 16 (bound {u_bound:.6f}, plain {u_plain:.4f} / "
-        f"{u_plain_dev:.4f})")
     for r in [qs, *shapes]:
         log(f"phase 6: bitplane_matmul ({r['m']},{r['k']})x({r['k']},{r['n']}) keep {r['keep']} "
             f"{'warm' if r['warm'] else 'cold'}: {r['ms']:.4f} / {r['device_ms']:.4f} ms "
@@ -2012,20 +2297,28 @@ def time_bitplane_kernels(torch, dev, errs, serve_launches, per_step, prefill,
          "replaces": "src/repro/kernels/bitplane/kernel.py:53",
          "launches": serve_launches["bitplane_pack"],
          "launches_per_decode_step": per_step["bitplane_pack"],
+         "launches_per_model_decode": decode["bitplane_pack"],
          "launches_per_prefill_chunk": prefill["bitplane_pack"],
-         "max_abs_err": errs["bitplane_pack"], "ms": p_ms, "device_ms": p_dev,
-         "plain_ms": p_plain, "plain_device_ms": p_plain_dev,
-         "bound_ms": p_bound, "bound_by": p_by, "library_ms": None,
-         "library": "none"},
+         "max_abs_err": errs["bitplane_pack"],
+         **{key: append[key] for key in ("shape", "ms", "device_ms", "plain_ms",
+                                         "plain_device_ms", "bound_ms", "bound_by",
+                                         "bound_bytes", "parent_route_ms",
+                                         "parent_route_device_ms")},
+         "library_ms": None, "library": "none", **floor,
+         "shapes": [chunk, span_pack, cold[0]]},
         {"name": "bitplane_unpack", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/bitplane/kernel.py:73",
          "launches": serve_launches["bitplane_unpack"],
          "launches_per_decode_step": per_step["bitplane_unpack"],
+         "launches_per_model_decode": decode["bitplane_unpack"],
          "launches_per_prefill_chunk": prefill["bitplane_unpack"],
-         "max_abs_err": errs["bitplane_unpack"], "ms": u_ms, "device_ms": u_dev,
-         "plain_ms": u_plain, "plain_device_ms": u_plain_dev,
-         "bound_ms": u_bound, "bound_by": u_by, "library_ms": None,
-         "library": "none"},
+         "max_abs_err": errs["bitplane_unpack"],
+         **{key: slot_unpack[key] for key in ("shape", "ms", "device_ms", "plain_ms",
+                                              "plain_device_ms", "bound_ms", "bound_by",
+                                              "bound_bytes", "parent_route_ms",
+                                              "parent_route_device_ms")},
+         "library_ms": None, "library": "none", **floor,
+         "shapes": [get_unpack, cold[1], cold[2]], "cold_keep8_over_keep16": cold_ratio},
         {"name": "bitplane_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/bitplane_matmul.cu",
          "replaces": "src/repro/kernels/bitplane_matmul/kernel.py:49",
@@ -2527,6 +2820,8 @@ def main() -> int:
     total = sum(len(r.output) for r in fused_reqs)
     log(f"phase 3: fused and rung runs agree on {same}/{total} greedy tokens "
         f"({same / total:.3f})")
+    log(f"phase 3 digest of greedy tokens and counters: fused "
+        f"{phase3_digest(fused_reqs, fused_rep)}, rung {phase3_digest(rung_reqs, rung_rep)}")
     first = first_divergences(fused_reqs, rung_reqs)
     checks = {}
     for kernel, timed in (("fused", (fused_reqs, fused_rep)), ("rung", (rung_reqs, rung_rep))):
@@ -2540,6 +2835,7 @@ def main() -> int:
     per_step = profile_decode(torch, model, params)
     cache, tok, keeps = snapshot(torch, model, params)
     prefill = prefill_chunk_launches(torch, model, params, cache)
+    decode = decode_launches(torch, model, params, cache, tok, keeps)
     teacher_forced(torch, model, params, cache, tok, keeps)
     mark("3")
     round_trip = memory_tier_round_trip(torch, cache)
@@ -2558,7 +2854,7 @@ def main() -> int:
         "fused": fused_launches, "rung": rung_launches,
         "steps": {"fused": fused_rep["decode_steps"], "rung": rung_rep["decode_steps"]}})
     kernels += time_bitplane_kernels(torch, dev, errs, fused_launches, per_step,
-                                     prefill, qs_launches)
+                                     prefill, decode, round_trip, qs_launches)
     kernels.append(time_ssd_kernel(torch, ssd_checks, mamba, zamba))
     kernels.append(time_flash_kernel(torch, errs["flash_attention"], flash_inputs, zamba,
                                      prefill))

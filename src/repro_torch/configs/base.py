@@ -174,7 +174,7 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
             f"(smollm-135m), the SSM family (mamba2-1.3b) and the hybrid "
             f"family (zamba2-7b); other configs "
             f"and families come with the 'other model families' slice "
-            f"(ROADMAP queue 1 item 4)"
+            f"(ROADMAP queue 1)"
         )
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")

@@ -2,6 +2,10 @@
 ``kernels/bitplane/ops.py``): the dispatch on raw bits, and value-space
 entry points (bf16/fp16/fp32/fp8/int tensors in, plane arrays out).
 
+The KV cache's entry points move K and V together between bf16 rows and
+the (bits, A, S, Hkv, hd/8) plane cache: :func:`pack_kv_into` writes the
+planes in place, :func:`unpack_kv_pair` rebuilds both streams' rows.
+
 Dispatch: a CPU tensor takes the plain PyTorch version in :mod:`.ref`; a
 CUDA tensor launches the hand-written kernel (:mod:`.kernel`) or raises.
 There is no other route.
@@ -57,6 +61,26 @@ def unpack_raw(planes: torch.Tensor, bits: int, keep: int,
     if _on_cpu(planes):
         return R.unpack_ref(planes, bits, keep, dtype)
     return K.unpack(planes[:keep].contiguous(), bits, keep, dtype)
+
+
+def pack_kv_into(k: torch.Tensor, v: torch.Tensor, k_planes: torch.Tensor,
+                 v_planes: torch.Tensor, start) -> None:
+    """K and V rows (A, c, Hkv, hd) bf16 into their plane caches (bits, A,
+    S, Hkv, hd/8) uint8, IN PLACE: rows [start, start + c) for a Python
+    ``start``, row a's token at clamp(start[a], 0, S - 1) for an (A,)
+    tensor.  One launch on CUDA."""
+    if _on_cpu(k_planes):
+        return R.pack_kv_into_ref(k, v, k_planes, v_planes, start)
+    return K.pack_kv_into(k, v, k_planes, v_planes, start)
+
+
+def unpack_kv_pair(k_planes: torch.Tensor, v_planes: torch.Tensor, keep: int,
+                   bits: int = 16) -> torch.Tensor:
+    """K and V planes (n >= keep, A, B, Hkv, hd/8) -> (2, A, B, Hkv, hd)
+    bf16 from planes [0, keep).  One launch on CUDA."""
+    if _on_cpu(k_planes):
+        return R.unpack_kv_pair_ref(k_planes, v_planes, keep, bits)
+    return K.unpack_kv_pair(k_planes, v_planes, keep, bits)
 
 
 def container(spec: FloatSpec) -> torch.dtype:

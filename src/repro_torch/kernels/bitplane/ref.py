@@ -47,3 +47,50 @@ def unpack_ref(planes: torch.Tensor, bits: int, keep: int,
     if width < 8 and dtype != torch.uint8:
         u = torch.where(u >= 1 << (8 * width - 1), u - (1 << 8 * width), u)
     return u.to(dtype)
+
+
+def pack_kv_ref(kv: torch.Tensor, bits: int = 16) -> torch.Tensor:
+    """(..., hd) bf16 -> (bits, ..., hd//8) uint8: the flat bit-plane pack
+    of the row-major values, each plane reshaped like ``kv``."""
+    u = kv.to(torch.bfloat16).contiguous().view(torch.int16).reshape(-1)
+    return pack_ref(u, bits).reshape((bits,) + kv.shape[:-1] + (kv.shape[-1] // 8,))
+
+
+def unpack_kv_ref(planes: torch.Tensor, keep: int, bits: int = 16) -> torch.Tensor:
+    """(n >= keep, ..., hd//8) planes -> (..., hd) bf16, low planes zeroed
+    (truncation to the top ``keep`` planes; keep 0 reads zero)."""
+    m8 = planes[0].numel()
+    u = unpack_ref(planes[:keep].reshape(keep, m8), bits, keep, torch.int16)
+    return u.view(torch.bfloat16).reshape(planes.shape[1:-1] + (planes.shape[-1] * 8,))
+
+
+def pack_kv_into_ref(k: torch.Tensor, v: torch.Tensor, k_planes: torch.Tensor,
+                     v_planes: torch.Tensor, start) -> None:
+    """The plain version of ``kernel.pack_kv_into``: each stream packed by
+    itself, then written into its planes IN PLACE, as the attention layer
+    wrote them before the two were one launch.  A Python ``start`` writes
+    rows [start, start + c) (the reference's ``dynamic_update_slice``); a
+    tensor writes row a's one token at clamp(start[a], 0, S - 1) (the
+    reference's ``.at[:, rows, slot].set``)."""
+    bits = k_planes.shape[0]
+    if not torch.is_tensor(start):
+        end = int(start) + k.shape[1]
+        if not 0 <= int(start) <= end <= k_planes.shape[2]:
+            raise ValueError(f"rows [{int(start)}, {end}) outside the cache's "
+                             f"{k_planes.shape[2]}")
+        k_planes[:, :, int(start):end] = pack_kv_ref(k, bits)
+        v_planes[:, :, int(start):end] = pack_kv_ref(v, bits)
+        return
+    if k.shape[1] != 1:
+        raise ValueError(f"a start per row takes one token a row, got {k.shape[1]}")
+    rows = torch.arange(k_planes.shape[1], device=k_planes.device)
+    slot = torch.clamp(start, 0, k_planes.shape[2] - 1).long()
+    k_planes[:, rows, slot] = pack_kv_ref(k, bits)[:, :, 0]
+    v_planes[:, rows, slot] = pack_kv_ref(v, bits)[:, :, 0]
+
+
+def unpack_kv_pair_ref(k_planes: torch.Tensor, v_planes: torch.Tensor, keep: int,
+                       bits: int = 16) -> torch.Tensor:
+    """The plain version of ``kernel.unpack_kv_pair``: (2, ..., hd) bf16,
+    each stream unpacked by itself from planes [0, keep)."""
+    return torch.stack([unpack_kv_ref(p, keep, bits) for p in (k_planes, v_planes)])

@@ -4,8 +4,8 @@ KV-plane layout: planes (bits, B, S, Hkv, hd//8) uint8 — bit i (0 = MSB) of
 K[b, s, h, d] at planes[i, b, s, h, d//8] bit (7 - d%8).
 
 ``pack_kv_ref`` / ``unpack_kv_ref`` port the reference's jnp oracles as
-the flat bit-plane pack and unpack (``kernels/bitplane/ref.py``) of the
-row-major values.
+the flat bit-plane pack and unpack of the row-major values; they live in
+``kernels/bitplane/ref.py``, beside the KV entry points' plain versions.
 ``paged_attention_fused_ref`` / ``paged_attention_rung_ref`` hold the same
 math as the CUDA kernels in ``csrc/paged_attention.cu``: each token's key
 and value are rebuilt from planes [0, keep) of its page, scores are taken in
@@ -23,23 +23,9 @@ import math
 import torch
 
 from repro_torch.core.bitplane import from_uint
-from repro_torch.kernels.bitplane.ref import pack_ref, unpack_ref
+from repro_torch.kernels.bitplane.ref import pack_kv_ref, unpack_kv_ref  # noqa: F401
 
 NEG_INF = -1e30
-
-
-def pack_kv_ref(kv: torch.Tensor, bits: int = 16) -> torch.Tensor:
-    """(..., hd) bf16 -> (bits, ..., hd//8) uint8: the flat bit-plane pack
-    of the row-major values, each plane reshaped like ``kv``."""
-    u = kv.to(torch.bfloat16).contiguous().view(torch.int16).reshape(-1)
-    return pack_ref(u, bits).reshape((bits,) + kv.shape[:-1] + (kv.shape[-1] // 8,))
-
-
-def unpack_kv_ref(planes: torch.Tensor, keep: int, bits: int = 16) -> torch.Tensor:
-    """(bits, ..., hd//8) planes -> (..., hd) bf16, low planes zeroed
-    (truncation to the top ``keep`` planes)."""
-    u = unpack_ref(planes[:keep].reshape(keep, -1), bits, keep, torch.int16)
-    return u.view(torch.bfloat16).reshape(planes.shape[1:-1] + (planes.shape[-1] * 8,))
 
 
 def _planes_to_uint(planes: torch.Tensor, plane_idx: torch.Tensor, bits: int,

@@ -28,12 +28,9 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.kernels.bitplane import ops as bitplane_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.paged_attention.ops import (
-    batched_ladder_paged_attention,
-    pack_kv_planes,
-    unpack_kv,
-)
+from repro_torch.kernels.paged_attention.ops import batched_ladder_paged_attention
 from repro_torch.models.layers import apply_rope, he_init, rope_angles
 
 NEG_INF = -1e30
@@ -106,26 +103,21 @@ def _bitplane_cache_step(q, k, v, cache, *, pos, cache_len, kv_planes,
             raise ValueError(f"prefill chunk ends at {end} past the cache ({kp.shape[2]})")
         # the slot's whole S rows, as the reference: rows past `end` are
         # masked, but the attention sums then run over the same length
-        kd = unpack_kv(kp, bits, bits)
-        vd = unpack_kv(vp, bits, bits)
+        kd, vd = bitplane_ops.unpack_kv_pair(kp, vp, bits, bits)
         kd[:, cache_len:end] = k.to(kd.dtype)
         vd[:, cache_len:end] = v.to(vd.dtype)
         out = flash_ops.flash_attention(q, kd, vd, q_pos=pos, kv_valid=end)
         # in place: the reference's dynamic_update_slice of the packed rows
-        kp[:, :, cache_len:end] = pack_kv_planes(k, bits)
-        vp[:, :, cache_len:end] = pack_kv_planes(v, bits)
+        bitplane_ops.pack_kv_into(k, v, kp, vp, int(cache_len))
         return out
-    # decode: pack-append the token at each row's own position, then the
-    # partial-plane kernel (per-slot valid lengths and ladders).  Idle rows
-    # append garbage at their own position, masked for every real query.
+    # decode: pack-append the token at each row's own position (the
+    # reference's kp.at[:, rows, clip(len, 0, S - 1)].set, in place), then
+    # the partial-plane kernel (per-slot valid lengths and ladders).  Idle
+    # rows append garbage at their own position, masked for every real query.
     ln = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
     if ln.dim() == 0:
         ln = ln.expand(kp.shape[1])
-    rows = torch.arange(kp.shape[1], device=q.device)
-    slot = torch.clamp(ln, 0, kp.shape[2] - 1).long()
-    # in place: the reference's kp.at[:, rows, slot].set(pk)
-    kp[:, rows, slot] = pack_kv_planes(k, bits)[:, :, 0]
-    vp[:, rows, slot] = pack_kv_planes(v, bits)[:, :, 0]
+    bitplane_ops.pack_kv_into(k, v, kp, vp, ln)
     out = batched_ladder_paged_attention(
         q, kp, vp, kv_planes, ln + 1,
         keeps=tuple(keeps) if keeps is not None else (bits,),
@@ -150,7 +142,7 @@ def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
     if cfg.attn_window > 0:
         raise NotImplementedError(
             "sliding-window attention (ring caches) is not ported yet: it "
-            "comes with the ring backend slice (ROADMAP queue 1 item 2)"
+            "comes with the 'ring and sharded backends' slice (ROADMAP queue 1)"
         )
     hp = params["wq"].shape[1]
     d = x.shape[-1]

@@ -113,7 +113,7 @@ def _ssm_stack_seq(params: dict, cfg, x: torch.Tensor):
 def ssm_lm_loss(params, cfg, batch):
     raise NotImplementedError(
         "ssm_lm_loss is not ported yet: it comes with the training slice "
-        "(ROADMAP queue 1 item 5)"
+        "(ROADMAP queue 1)"
     )
 
 
@@ -202,7 +202,7 @@ def init_hybrid_params(cfg, generator: torch.Generator) -> dict:
 def hybrid_loss(params, cfg, batch):
     raise NotImplementedError(
         "hybrid_loss is not ported yet: it comes with the training slice "
-        "(ROADMAP queue 1 item 5)"
+        "(ROADMAP queue 1)"
     )
 
 

@@ -161,5 +161,5 @@ def build_model(cfg: ModelConfig) -> Model | SSMModel | HybridModel:
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet: the MoE, enc-dec and VLM "
         f"families come with the 'other model families' slice (ROADMAP queue "
-        f"1 item 4)"
+        f"1)"
     )

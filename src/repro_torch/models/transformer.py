@@ -154,8 +154,9 @@ def init_decode_cache(cfg, batch: int, max_len: int, device,
     """Zeroed dense serving cache (full attention only)."""
     if 0 < cfg.attn_window < max_len or cfg.decode_staging > 0:
         raise NotImplementedError(
-            "ring and staged decode caches are not ported yet (ROADMAP queue "
-            "1 item 2)")
+            "ring and staged decode caches are not ported yet: they come with "
+            "the 'ring and sharded backends' and 'rest of serving' slices "
+            "(ROADMAP queue 1)")
     dtype = dtype or pdtype(cfg)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {

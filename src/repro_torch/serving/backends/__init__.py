@@ -23,8 +23,8 @@ def make_backend(model, cfg, device, controller=None, stats=None,
     if cfg.backend in _LATER:
         raise NotImplementedError(
             f"backend={cfg.backend!r} is not ported yet: the ring and sharded "
-            f"tiers come with the 'rest of serving' slice (ROADMAP queue 1 "
-            f"item 2); the port serves backend='paged'"
+            f"tiers come with the 'ring and sharded backends' slice (ROADMAP "
+            f"queue 1); the port serves backend='paged'"
         )
     try:
         cls = BACKENDS[cfg.backend]

@@ -48,6 +48,7 @@ from repro_torch.core.quantization import (
     page_minmax,
     quest_scores,
 )
+from repro_torch.kernels.bitplane.ops import unpack_kv_pair
 from repro_torch.kernels.paged_attention.ops import unpack_kv
 from repro_torch.memctl import CompressionEngineRuntime, Job, JobClass
 from repro_torch.models.transformer import bitplane_cache_from_dense
@@ -215,19 +216,17 @@ class KVBackend(abc.ABC):
         if mcfg.family != "dense":
             raise NotImplementedError(
                 f"the port serves the dense family; {mcfg.family!r} comes "
-                f"with the 'other model families' slice (ROADMAP queue 1 "
-                f"item 4)"
+                f"with the 'other model families' slice (ROADMAP queue 1)"
             )
         if 0 < mcfg.attn_window < cfg.max_ctx:
             raise NotImplementedError(
                 "sliding-window ring caches need backend='ring', which comes "
-                "with the 'rest of serving' slice (ROADMAP queue 1 item 2)"
+                "with the 'ring and sharded backends' slice (ROADMAP queue 1)"
             )
         if mcfg.decode_staging > 0:
             raise NotImplementedError(
                 f"decode_staging={mcfg.decode_staging}: staged decode caches "
-                f"come with the 'rest of serving' slice (ROADMAP queue 1 "
-                f"item 2)"
+                f"come with the 'rest of serving' slice (ROADMAP queue 1)"
             )
         if cfg.device_kv not in ("dense", "bitplane"):
             raise ValueError(
@@ -290,15 +289,17 @@ class KVBackend(abc.ABC):
         """This slot's KV rows [t0, t1) of the stored layers (or the
         ``layers`` slice of them) on the device, as raw bf16 bits:
         (layers, 2 streams k/v, tokens, channels) ``int16``.  The bit-plane
-        layout unpacks both streams at full precision in one launch —
-        packing is a bf16 bitcast, so the bits equal the dense layout's."""
+        layout unpacks both streams at full precision in one launch,
+        reading the cache's planes in place — packing is a bf16 bitcast, so
+        the bits equal the dense layout's."""
         ls = self.stored_layers()
         t = t1 - t0
         if self.device_kv == "bitplane":
-            # (L, bits, B, T, Hkv, hd8) -> (bits, 2, layers, t, Hkv, hd8)
-            pl = torch.stack([self._cache[name][:ls][layers, :, slot_id, t0:t1]
-                              for name in ("k_planes", "v_planes")]).movedim(2, 0)
-            dense = unpack_kv(pl, pl.shape[0], pl.shape[0])
+            # (L, bits, B, T, Hkv, hd8) -> (bits, layers, t, Hkv, hd8) views
+            # of each stream, unpacked together -> (2, layers, t, Hkv, hd)
+            kp, vp = (self._cache[name][:ls][layers, :, slot_id, t0:t1].movedim(1, 0)
+                      for name in ("k_planes", "v_planes"))
+            dense = unpack_kv_pair(kp, vp, kp.shape[0], kp.shape[0])
         else:
             dense = torch.stack([self._cache[name][:ls][layers, slot_id, t0:t1]
                                  for name in ("k", "v")])

@@ -303,3 +303,103 @@ def test_precision_study_refuses_to_run_without_a_gpu():
                           capture_output=True, text=True, env=env, cwd=REPO, timeout=120)
     assert proc.returncode == 2
     assert '"cases"' not in proc.stdout
+
+
+def test_bitplane_bytes_and_the_cold_bound():
+    """Phase 6's byte bounds: the cold shape moves 67 MB at keep 16 (20 us
+    at 3.35 TB/s) and three quarters of it at keep 8; the decode append
+    reads K, V and the positions and writes 16 planes of both."""
+    m = C.COLD_VALUES
+    assert C.bitplane_bytes(m, 2, 16) == 67_108_864
+    assert C.bound_ms(C.bitplane_bytes(m, 2, 16), 0, C.BF16_TENSOR_FLOPS) == \
+        pytest.approx((0.020032, "bytes"), abs=1e-6)
+    assert C.bitplane_bytes(m, 2, 8) * 4 == C.bitplane_bytes(m, 2, 16) * 3
+    r = C.HKV * C.HD
+    assert C.bitplane_bytes(2 * C.B * r, 2, C.BITS) == 2 * C.B * r * 4
+    assert C.SPAN_VALUES == 786_432
+
+
+def _planes(gen, *shape):
+    return torch.randint(0, 256, shape, generator=gen, dtype=torch.int32).to(torch.uint8)
+
+
+def test_parent_routes_do_the_work_of_the_kv_entry_points():
+    """Phase 6's yardsticks (the parent's append, chunk append and slot
+    unpack, each stream on its own through the flat entry points and an
+    indexed or sliced write) leave the same planes and rows as the KV
+    entry points' plain versions."""
+    from repro_torch.kernels.bitplane import ref as BR
+
+    gen = torch.Generator().manual_seed(0)
+    kp, vp = _planes(gen, 16, 4, 64, 3, 8), _planes(gen, 16, 4, 64, 3, 8)
+    k, v = (torch.randn((4, 1, 3, 64), generator=gen).to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([0, 70, 63, -2], dtype=torch.int32)
+    want = [kp.clone(), vp.clone()]
+    BR.pack_kv_into_ref(k, v, *want, lens)
+    C.parent_append(torch, k, v, kp, vp, lens)
+    assert torch.equal(kp, want[0]) and torch.equal(vp, want[1])
+    k, v = (torch.randn((1, 16, 3, 64), generator=gen).to(torch.bfloat16) for _ in range(2))
+    slot = kp.narrow(1, 2, 1), vp.narrow(1, 2, 1)
+    want = [t.clone() for t in slot]
+    BR.pack_kv_into_ref(k, v, *want, 40)
+    C.parent_chunk_append(k, v, *slot, 40)
+    assert torch.equal(slot[0], want[0]) and torch.equal(slot[1], want[1])
+    got = C.parent_unpack_pair(*slot, 16)
+    pair = BR.unpack_kv_pair_ref(*slot, 16)
+    assert torch.equal(torch.stack(got).view(torch.int16), pair.view(torch.int16))
+
+
+def test_phase3_digest_reads_tokens_and_integer_counters_only():
+    reqs = _requests(1000)
+    for i, r in enumerate(reqs):
+        r.output = [i, i + 1]
+    rep = {"decode_steps": 5, "kv_stored_bytes": 100, "decode_s": 0.5, "tok_per_s": 3.0,
+           "device_kv": "bitplane", "engine": {"x": 1}, "flag": True}
+    d = C.phase3_digest(reqs, rep)
+    assert d == C.phase3_digest(reqs, {**rep, "decode_s": 9.0, "tok_per_s": 1.0})
+    assert d != C.phase3_digest(reqs, {**rep, "kv_stored_bytes": 101})
+    reqs[2].output[1] += 1
+    assert d != C.phase3_digest(reqs, rep)
+
+
+def test_expect_launches_is_exact():
+    C.expect_launches("x", {"bitplane_pack": 30, "bitplane_unpack": 0, "other": 7},
+                      {"bitplane_pack": 30, "bitplane_unpack": 0})
+    with pytest.raises(AssertionError, match="expected"):
+        C.expect_launches("a prefill chunk", {"bitplane_pack": 60, "bitplane_unpack": 60},
+                          {"bitplane_pack": 30, "bitplane_unpack": 30})
+
+
+def test_bitplane_cases_cover_the_contract():
+    """Phase 2 holds the flat kernels at 1-, 2- and 4-byte containers, at
+    one octet and at a ragged last plane word, and the decode append at
+    clamped positions past S and below 0 and prefill chunks at 0, mid and
+    the end; unpack down to keep 0."""
+    assert {w for w, _ in C.BITPLANE_WIDTHS} == {1, 2, 4}
+    assert 8 in C.BITPLANE_LENGTHS and any((m // 8) % 4 for m in C.BITPLANE_LENGTHS)
+    assert len(C.APPEND_POS) == C.B
+    assert max(C.APPEND_POS) >= C.S and min(C.APPEND_POS) < 0 and C.S - 1 in C.APPEND_POS
+    assert C.CHUNK_STARTS[0] == 0 and C.CHUNK_STARTS[-1] + C.CHUNK == C.S
+    assert C.UNPACK_KEEPS == (16, 12, 8, 4, 0)
+
+
+def test_digest_script_imports_nothing_of_jax_or_the_reference():
+    tree = ast.parse((REPO / "phase3_digest.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}, roots
+
+
+def test_digest_script_refuses_to_run_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the refusal path is for CPU-only hosts")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, str(REPO / "phase3_digest.py"), str(REPO)],
+                          capture_output=True, text=True, env=env, cwd=REPO, timeout=120)
+    assert proc.returncode == 2
+    assert "digest" not in proc.stdout

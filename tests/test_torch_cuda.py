@@ -74,6 +74,127 @@ def test_cuda_pack_unpack_match_plain_on_card(m, bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width,bits", [(1, 8), (1, 4), (2, 16), (2, 12), (4, 32), (4, 23)])
+@pytest.mark.parametrize("m", [8, 8 * 37, 1536, 8 * 12345, 786432])
+def test_cuda_flat_kernels_match_plain_at_every_width(width, bits, m):
+    """Bit-exact at 1-, 2- and 4-byte containers: one octet, m/8 = 37 and
+    12345 (a ragged last plane word, plane rows not 4-byte aligned), the
+    decode token rows and the memory tier's span; values at an odd offset
+    (copied to an aligned block) and planes read from a larger stack."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(m + 7 * bits)
+    dtype = K.CONTAINERS[width]
+    u = torch.randint(0, 1 << bits, (m + 1,), generator=gen, device=dev,
+                      dtype=torch.int64).to(dtype)[1:]
+    planes = K.pack(u, bits)
+    assert torch.equal(planes, R.pack_ref(u, bits))
+    stack = torch.cat([planes, planes[:2]])
+    for keep in sorted({bits, bits - 1, 8, 4, 1, 0} & set(range(bits + 1))):
+        want = R.unpack_ref(planes, bits, keep, dtype)
+        assert torch.equal(K.unpack(planes[:keep].contiguous(), bits, keep, dtype), want)
+        assert torch.equal(K.unpack(stack, bits, keep, dtype), want)
+    torch.cuda.synchronize()
+
+
+KV_SHAPES = [(8, 1024, 3, 64), (4, 64, 1, 8), (2, 64, 1, 112), (2, 48, 2, 112), (2, 32, 4, 128)]
+
+
+def _kv_cache(dev, gen, b, s, hkv, hd, layers=2):
+    return [torch.randint(0, 256, (layers, 16, b, s, hkv, hd // 8), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8) for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hkv,hd", KV_SHAPES)
+def test_cuda_pack_kv_into_matches_plain(b, s, hkv, hd):
+    """K and V in one launch, bit for bit against the plain version: the
+    decode append at 0, mid, S - 1, past S and negative (clamped), idle
+    rows at their own position; prefill chunks into one slot at offset 0,
+    mid and the end.  Rows of Hkv * hd / 8 = 1 and 14 bytes take the byte
+    path (plane rows not 4-byte aligned)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(b * s + hkv + hd)
+    caches = _kv_cache(dev, gen, b, s, hkv, hd)
+    plain = [c.clone() for c in caches]
+
+    def rows(a, c):
+        return [torch.randn((a, c, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2)]
+
+    pos = torch.tensor([0, s // 2, s - 1, s + 3, -1, 5, 2, 1][:b], device=dev,
+                       dtype=torch.int32)
+    K.reset_launches()
+    k, v = rows(b, 1)
+    K.pack_kv_into(k, v, caches[0][1], caches[1][1], pos)
+    R.pack_kv_into_ref(k, v, plain[0][1], plain[1][1], pos)
+    c = min(s // 4, 256)
+    for start in (0, s // 2 - 3, s - c):
+        k, v = rows(1, c)
+        K.pack_kv_into(k, v, *(t.narrow(2, b - 1, 1)[0] for t in caches), start)
+        R.pack_kv_into_ref(k, v, *(t.narrow(2, b - 1, 1)[0] for t in plain), start)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"bitplane_pack": 4, "bitplane_unpack": 0}
+    for got, want in zip(caches, plain):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hkv,hd", KV_SHAPES)
+def test_cuda_unpack_kv_pair_matches_plain(b, s, hkv, hd):
+    """Both streams in one launch from planes [0, keep), keep 16, 12, 8, 4
+    and 0: a layer's whole cache, one slot of it (a prefill chunk's read)
+    and a layer range of one slot (the memory tier's read)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(b * s * hkv + hd)
+    caches = _kv_cache(dev, gen, b, s, hkv, hd)
+    views = (lambda c: c[1], lambda c: c.narrow(2, b - 1, 1)[0],
+             lambda c: c[:, :, b // 2, 3:s - 5].movedim(1, 0))
+    K.reset_launches()
+    for keep in (16, 12, 8, 4, 0):
+        for view in views:
+            kp, vp = (view(c) for c in caches)
+            got = K.unpack_kv_pair(kp, vp, keep)
+            want = R.unpack_kv_pair_ref(kp, vp, keep)
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"bitplane_pack": 0, "bitplane_unpack": 15}
+
+
+@pytest.mark.cuda
+def test_cuda_model_packs_and_unpacks_once_a_layer():
+    """A prefill chunk launches one unpack and one pack a layer, a decode
+    step one pack a layer and no unpack."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import bitplane_cache_from_dense
+
+    dev = _cuda()
+    cfg = get_config("smollm-135m", smoke=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    cache = bitplane_cache_from_dense(model.init_cache(2, 64, device=dev))
+    tokens = (torch.arange(16, device=dev)[None] * 5) % cfg.vocab
+    K.reset_launches()
+    model.prefill_chunk(params, tokens, cache, 1, 0, 15)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"bitplane_pack": cfg.n_layers, "bitplane_unpack": cfg.n_layers}
+    K.reset_launches()
+    cache["len"] = torch.tensor([3, 16], dtype=torch.int32, device=dev)
+    model.decode(params, torch.tensor([1, 2], device=dev), cache)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"bitplane_pack": cfg.n_layers, "bitplane_unpack": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_launch_floor_probe_runs_uncounted():
+    _cuda()
+    K.reset_launches()
+    K.launch_empty()
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"bitplane_pack": 0, "bitplane_unpack": 0}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(8, 576, 576), (128, 576, 192), (8, 576, 1536),
                                    (128, 1536, 576), (8, 1024, 1024), (5, 100, 24),
                                    (8, 3584, 14336), (128, 3584, 14336), (64, 1024, 1024),

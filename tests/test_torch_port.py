@@ -95,8 +95,8 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(smoke):
 
 
 @pytest.mark.parametrize("change,error,match", [
-    (dict(backend="ring"), NotImplementedError, "rest of serving"),
-    (dict(backend="sharded"), NotImplementedError, "rest of serving"),
+    (dict(backend="ring"), NotImplementedError, "ring and sharded backends"),
+    (dict(backend="sharded"), NotImplementedError, "ring and sharded backends"),
     (dict(prefix_sharing=True), NotImplementedError, "prefix_sharing"),
     (dict(weight_stream="compressed"), NotImplementedError, "weight_stream"),
     (dict(prefill_mode="padded"), NotImplementedError, "padded"),
