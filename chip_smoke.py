@@ -43,7 +43,13 @@ Phases (any failure exits non-zero; no phase's error is caught):
    Exponent-delta encode and decode bit for bit at a 512-token serving
    span (4 stored layers x 2 streams x 32 pages of 192 channels), a decode
    page fill (8 pages), the quickstart's KV, fp8_e4m3 in uint8, ragged row
-   counts, and decode of top-k truncations (keep 12, 8, 4).  The bit-plane
+   counts, and decode of top-k truncations (keep 12, 8, 4); the fused
+   cluster-and-encode (the KV page write's entry point) at the token-major
+   views the memory tier gives it (the serving span's (layers, 2, t, C)
+   transposed view, a decode page fill, a re-activated tail page,
+   compress_kv's ragged (t, C), the quickstart's KV), fp8 and fp32, G 8
+   and 12, C = 24, the byte path (an unaligned start, rows of no whole
+   vectors, pages of one channel) and channels cut in chunks.  The bit-plane
    matmul also at the Zamba2-7B MLP up-projection (M 8 and 128 x 3584 x
    14336), every matmul shape at keep 16, 12, 8, 4, 1 and 0.
 3. Serve 16 requests through ``ContinuousScheduler`` on full-width
@@ -69,7 +75,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    tokens and read the same ladder plane maps must agree within it too.
    Each run's queued page-write bytes must equal its stored logical bytes
    plus the bytes of the writes ``retire`` cancelled (``write_job_ledger``),
-   and the queued bytes must be equal across the runs.
+   and the queued bytes must be equal across the runs.  Two page-writing
+   spans as the backend runs them (``slot_kv_bits``, then ``encode_span``;
+   whole pages and a ragged tail page), each in a profiler window: exactly
+   one device kernel, the exponent-delta encode, between the span's unpack
+   and its pack, the parent's route there counted beside it.
 3c. The memory tier's round trip at the serving width: the snapshot's
    device KV of enough slots for at least 512 pages (4 stored layers x 2
    streams, 192 channels) through ``put_sequence`` into a card store and a
@@ -112,7 +122,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    memory tier's 256-page span and a cold m = 2^24; the unpack row one
    slot's K+V (keep 16) beside the parent's route, and under ``shapes``
    phase 3c's longest ``get_sequence`` and the cold m = 2^24 at keep 16 and
-   8; both with an empty kernel's device time, the launch floor; each
+   8; both with an empty kernel's device time, the launch floor; the
+   exponent-delta encode row the serving span's view beside the parent's
+   route (a tail cat, a reshape copy, a cluster copy, the flat encode), and
+   under ``shapes`` a decode page fill, a cold 2^24 values and the flat
+   entry point; the decode row its flat rows; each
    paged row its long, cold decode rows: B 8, S 4096
    at Yi-9B's head shape, every page at keep 16, 8 and 4, beside SDPA with
    ``enable_gqa`` over the dense bf16 cache; the flash row its SmolLM
@@ -120,7 +134,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    448 with 960 valid keys, beside SDPA over the valid keys with a boolean
    mask, named by the backend it took, and under ``serving_mix`` the
    prefill chunks of phase 3's run, each timed as the launch plan splits
-   it and with its keys not split; the SSD row the Mamba2-1.3B prefill
+   it and with its keys not split, beside the mix's bound; the SSD row the Mamba2-1.3B prefill
    shape and, under ``shapes``, the Zamba2-7B one and both again with b
    and c rounded to bf16 values as the models' are, each beside its
    tensor-core bound at the TF32 passes the kernel takes on those inputs
@@ -168,6 +182,8 @@ SOURCES = ("paged_attention.cu", "bitplane.cu", "bitplane_matmul.cu", "ssd.cu",
            "flash_attention.cu", "exp_delta.cu")
 
 B, S, HKV, REP, HD, BITS = 8, 1024, 3, 3, 64, 16
+# tokens of a memory-tier page
+PAGE = 16
 LADDER = [(4, 16), (4, 12), (-1, 8)]
 KERNEL_ATOL = KERNEL_RTOL = 1e-2
 # Teacher-forced logits: fused, rung and plain sum the attention in
@@ -354,13 +370,12 @@ INCOMPLETE_WINDOWS: list = []
 WINDOW_LOSSES: list = []
 
 
-def device_rows(run, what: str, expect: dict | None = None) -> list:
-    """The device rows (``key_averages``) of a torch.profiler window, host
-    and device activity traced, around ``run()`` and a synchronise, with
-    the pad kernels left out.  Each kernel launch the host traced is matched
-    to its device record by correlation id; a lost record is allowed only
-    among the pads.  ``expect`` maps a kernel-name fragment to the launches
-    the window must hold."""
+def profile_window(run, what: str) -> tuple:
+    """A torch.profiler window, host and device activity traced, around
+    ``run()`` and a synchronise, opened with the pad kernels.  Each kernel
+    launch the host traced is matched to its device record by correlation
+    id; a lost record is allowed only among the pads.  Returns the
+    profiler, its events and the fault (None when complete)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -377,19 +392,46 @@ def device_rows(run, what: str, expect: dict | None = None) -> list:
     recorded = {e.id for e in events if e.device_type == cuda}
     lost = [i for i, e in enumerate(launches) if e.id not in recorded]
     WINDOW_LOSSES.append(len(lost))
-    rows = [e for e in prof.key_averages()
-            if e.device_type == cuda and "spin_kernel" not in e.key]
-    got = {m: sum(e.count for e in rows if m in e.key) for m in expect or {}}
     fault = None
     if len(launches) <= PROFILER_PAD or (lost and lost[-1] >= PROFILER_PAD):
         fault = (f"{len(launches)} launches traced, {len(lost)} records lost, the last "
                  f"at launch {lost[-1] if lost else None} (the pads are 0 to {PROFILER_PAD - 1})")
-    elif got != (expect or {}):
+    return prof, events, fault
+
+
+def incomplete(what: str, fault: str) -> None:
+    INCOMPLETE_WINDOWS.append((what, fault))
+    log(f"profiler: the window over {what} is incomplete ({fault})")
+
+
+def device_rows(run, what: str, expect: dict | None = None) -> list:
+    """The device rows (``key_averages``) of a ``profile_window`` around
+    ``run()``, the pad kernels left out.  ``expect`` maps a kernel-name
+    fragment to the launches the window must hold."""
+    import torch
+
+    prof, _, fault = profile_window(run, what)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key]
+    got = {m: sum(e.count for e in rows if m in e.key) for m in expect or {}}
+    if fault is None and got != (expect or {}):
         fault = f"launches recorded {got}, made {expect}"
     if fault:
-        INCOMPLETE_WINDOWS.append((what, fault))
-        log(f"profiler: the window over {what} is incomplete ({fault})")
+        incomplete(what, fault)
     return rows
+
+
+def device_sequence(run, what: str) -> list:
+    """The names of the device kernels and copies of ``run()`` in the order
+    they started, from a ``profile_window`` (the pad kernels left out)."""
+    import torch
+
+    _, events, fault = profile_window(run, what)
+    if fault:
+        incomplete(what, fault)
+    done = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "spin_kernel" not in e.name), key=lambda e: e.time_range.start)
+    return [e.name for e in done]
 
 
 def device_ms(fn, match: str = "", iters: int = 50, per_call: int = 1) -> float:
@@ -741,16 +783,55 @@ EXP_DELTA_CASES = (
     (100, 12, 16), (96, 16, 32),
 )
 EXP_DELTA_FIELDS = {16: (7, 0xFF), 8: (3, 0xF), 32: (23, 0xFF)}
+# The fused cluster-and-encode (the KV page write's entry point) at the views
+# the memory tier gives it, (kind, tensor shape, group, bits): the serving
+# span as slot_kv_bits returns it ((layers, 2, t, C), the transpose of a
+# (2, layers, t, C) unpack) and a decode page fill, one re-activated tail
+# page, compress_kv's ragged (t, C), the quickstart's KV, fp8_e4m3 in uint8,
+# fp32, G 8 and 12, C = 24 at an aligned and at an unaligned start, rows
+# that are no whole vectors inside wider ones and one channel's 2-byte rows
+# with a ragged tail (the byte path), one channel of whole groups (the
+# direct path, as the flat rows take it), and channels cut in chunks
+EXP_DELTA_VIEWS = (
+    ("span", (2, 4, 512, 192), 16, 16), ("span", (2, 4, 16, 192), 16, 16),
+    ("reactivated", (2, 1, 9, 192), 16, 16), ("tokens", (37, 192), 16, 16),
+    ("tokens", (512, 256), 16, 16), ("span", (2, 4, 40, 192), 16, 8),
+    ("tokens", (37, 96), 16, 32), ("span", (2, 2, 70, 192), 8, 16),
+    ("span", (2, 2, 70, 192), 12, 16), ("tokens", (45, 24), 16, 16),
+    ("offset", (45, 24), 16, 16), ("wide", (33, 20), 16, 16),
+    ("tokens", (33, 1000), 16, 16), ("tokens", (48, 1), 16, 16),
+    ("tokens", (35, 1), 16, 16),
+)
+
+
+def encode_view(u, kind: str, shape: tuple):
+    """The view ``kind`` of raw bits ``u`` (flat, at least one value more
+    than ``shape`` holds; for "wide" shape[0] * (shape[1] + 8)): the tensor
+    itself, the (layers, 2, t, C) transpose of (2, layers, t, C), one stream
+    of one layer of that, a (t, C) one value past an aligned start, or the C
+    channels after the first 3 of a (t, C + 8) row."""
+    n = math.prod(shape)
+    if kind == "wide":
+        return u[: shape[0] * (shape[1] + 8)].view(shape[0], shape[1] + 8)[:, 3 : 3 + shape[1]]
+    if kind == "offset":
+        return u[1 : n + 1].view(shape)
+    v = u[:n].view(shape)
+    if kind in ("span", "reactivated"):
+        v = v.transpose(0, 1)
+    return v[0, 1] if kind == "reactivated" else v
 
 
 def check_exp_delta_kernels(torch, dev) -> tuple:
     """Encode and decode bit for bit against their plain versions on the
-    same CUDA inputs at EXP_DELTA_CASES (random bits; the span also as bf16
-    KV with spread exponents), the round trip, and decode of top-k plane
-    truncations of the span's encoded values (through the pack and unpack
-    kernels).  Returns the largest |kernel - plain| (as int64) of encode
-    (values and bases) and of decode over every case, which must be 0, and
-    the span's bf16 KV bits (timed in phase 6)."""
+    same CUDA inputs: the flat entry points at EXP_DELTA_CASES (random bits;
+    the span also as bf16 KV with spread exponents), the round trip, and
+    decode of top-k plane truncations of the span's encoded values (through
+    the pack and unpack kernels); the fused cluster-and-encode at
+    EXP_DELTA_VIEWS (random bits; the serving span also as that bf16 KV).
+    Returns the largest |kernel - plain| (as int64) of encode (values and
+    bases) and of decode over every case, which must be 0, the span's bf16
+    KV bits as (rows, 16) and the serving span view of them (timed in phase
+    6)."""
     from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.exp_delta import kernel as EK
     from repro_torch.kernels.exp_delta import ref as ER
@@ -792,10 +873,31 @@ def check_exp_delta_kernels(torch, dev) -> tuple:
         errs["exp_delta_decode"] = max(errs["exp_delta_decode"], e_dec)
         if e_dec:
             raise AssertionError(f"exp_delta_decode differs from plain by {e_dec} at keep {keep}")
+    span_view = encode_view(span.reshape(-1), "span", EXP_DELTA_VIEWS[0][1])
+    views = [(span_view, "span", EXP_DELTA_VIEWS[0][1], 16, 16)]
+    for kind, shape, g, bits in EXP_DELTA_VIEWS:
+        n = shape[0] * (shape[1] + 8) if kind == "wide" else math.prod(shape) + 1
+        u = torch.randint(0, 1 << bits, (n,), generator=gen, device=dev, dtype=torch.int64)
+        u = ER._narrow(u, BK.CONTAINERS[bits // 8])
+        views.append((encode_view(u, kind, shape), kind, shape, g, bits))
+    for view, kind, shape, g, bits in views:
+        man, mask = EXP_DELTA_FIELDS[bits]
+        enc, base = EK.cluster_encode(view, g, man, mask)
+        enc_r, base_r = ER.cluster_encode_ref(view, g, man, mask)
+        if enc.shape != enc_r.shape or base.shape != base_r.shape:
+            raise AssertionError(f"cluster_encode at {kind} {shape}: shapes {tuple(enc.shape)}, "
+                                 f"{tuple(base.shape)} != {tuple(enc_r.shape)}, "
+                                 f"{tuple(base_r.shape)}")
+        e_enc = max(err(enc, enc_r), err(base, base_r))
+        errs["exp_delta_encode"] = max(errs["exp_delta_encode"], e_enc)
+        if e_enc:
+            raise AssertionError(f"cluster_encode differs from plain by {e_enc} at {kind} "
+                                 f"{shape}, G {g}, {bits} bits")
     log(f"phase 2: exp_delta encode/decode match plain bit for bit (max |kernel - plain| "
-        f"{errs}) at {[tuple(u.shape) + (b,) for u, b in cases]} (rows, G, bits) and at "
-        f"keep 12, 8, 4")
-    return errs, span
+        f"{errs}) at {[tuple(u.shape) + (b,) for u, b in cases]} (rows, G, bits), at "
+        f"keep 12, 8, 4, and the fused cluster-and-encode at "
+        f"{[(k, sh, g, b) for _, k, sh, g, b in views]} (view, shape, G, bits)")
+    return errs, span, span_view
 
 
 def make_requests(n: int = 16):
@@ -1175,6 +1277,68 @@ def snapshot(torch, model, params):
     cache["len"] = torch.as_tensor(sched._lens, device=cache["planes"].device)
     tok = torch.tensor([s.pending for s in sched._slots], device=cache["planes"].device)
     return cache, tok, sched.backend.device_keeps()
+
+
+def parent_span_encode(bits, group: int = 16) -> tuple:
+    """The parent's transform of a page-writing span between its unpack and
+    its bit-plane pack: a ragged tail page padded by a cat, the pages of
+    the (..., t, C) view reshaped to (pages, 16, C) (a copy: the transposed
+    view's leading dims do not merge), clustered (a second copy), then the
+    flat encode of the channel-major rows (today's flat entry point: the
+    same kernel's direct path, where the parent ran the first port's rows
+    kernel).  The yardstick of phases 3 and 6 (its flat encode counts in
+    LAUNCHES)."""
+    from repro_torch.core.kv_clustering import pad_tail
+    from repro_torch.kernels.exp_delta import kernel as EK
+
+    man, mask = EXP_DELTA_FIELDS[16]
+    pages = pad_tail(bits, group)
+    u = pages.reshape(-1, group, pages.shape[-1]).reshape(-1, pages.shape[-1])
+    grouped = u.reshape(u.shape[0] // group, group, -1).permute(0, 2, 1).contiguous()
+    return EK.encode(grouped.reshape(-1, group), man, mask)
+
+
+def write_span_kernels(torch, model, params) -> dict:
+    """The device kernels of two page-writing spans as the backend runs
+    them (``slot_kv_bits``, then ``encode_span``) on the serving cache after
+    admission: whole pages of a slot (up to 512 tokens) and 12 tokens fewer
+    (a ragged tail page), each in a profiler window.  Exactly one kernel,
+    the exponent-delta encode, must run between the span's unpack and its
+    pack; the parent's route between them (``parent_span_encode``) is
+    counted beside it."""
+    from repro_torch.serving import ContinuousScheduler
+
+    sched = ContinuousScheduler(model, params, engine_config("fused"))
+    for r in make_requests()[:B]:
+        sched.submit(r)
+    for _ in range(4):
+        sched.step()
+    torch.cuda.synchronize()
+    backend = sched.backend
+    slot = max(range(B), key=lambda i: int(sched._lens[i]))
+    whole = min(512, int(sched._lens[slot]) // PAGE * PAGE)
+    if whole < 2 * PAGE:
+        raise AssertionError(f"slot {slot} holds {sched._lens[slot]} tokens, too few for a span")
+    out = {}
+    for t1 in (whole, whole - 12):
+        seq = device_sequence(lambda: backend.encode_span(backend.slot_kv_bits(slot, 0, t1)),  # noqa: B023
+                              f"a page-writing span of {t1} tokens")
+        unpack = [i for i, name in enumerate(seq) if "bitplane_unpack_kernel" in name]
+        pack = [i for i, name in enumerate(seq) if "bitplane_pack_kernel" in name]
+        if len(unpack) != 1 or len(pack) != 1 or unpack[0] > pack[0]:
+            raise AssertionError(f"a span of {t1} tokens ran {seq}: not one unpack, then one pack")
+        between = seq[unpack[0] + 1 : pack[0]]
+        if len(between) != 1 or "exp_delta_encode_kernel" not in between[0]:
+            raise AssertionError(f"a span of {t1} tokens ran {between} between its unpack and "
+                                 f"its pack, not the one encode")
+        bits = backend.slot_kv_bits(slot, 0, t1)
+        parent = device_sequence(lambda: parent_span_encode(bits),  # noqa: B023
+                                 f"the parent's route over a span of {t1} tokens")
+        out[t1] = {"kernels": len(between), "parent_route_kernels": len(parent)}
+        log(f"phase 3: a page-writing span of {t1} tokens (slot {slot}, "
+            f"{backend.stored_layers()} stored layers x 2 streams) runs {seq}; between its "
+            f"unpack and its pack {between}; the parent's route there ran {parent}")
+    return out
 
 
 def profile_decode(torch, model, params, n: int = 8) -> dict:
@@ -2097,10 +2261,10 @@ def bitplane_bytes(values: int, width: int, planes: int) -> int:
 
 def bitplane_row(torch, what: str, run, plain, match: str, nbytes: int, iters: int = 200,
                  plain_iters: int = 20, parent=None) -> dict:
-    """One shape of a pack or unpack kernel: CUDA events around back-to-back
-    calls and the profiler's device time of the kernel (``match``), beside
-    the byte bound (pack and unpack move bits with a few integer operations
-    a value and no floating point: bytes bound them), the plain version
+    """One shape of a pack, unpack or exponent-delta kernel: CUDA events
+    around back-to-back calls and the profiler's device time of the kernel
+    (``match``), beside the byte bound (they move bits with a few integer
+    operations a value and no floating point: bytes bound them), the plain version
     and, with ``parent``, the parent's route for the same work (every
     kernel of it, device time)."""
     ms, dev_ms = cuda_time_ms(run, iters=iters), device_ms(run, match, iters)
@@ -2380,51 +2544,110 @@ def time_matmul(torch, dev, gen, m: int, k: int, n: int, keeps, warm: bool = Fal
     return rows
 
 
-def time_exp_delta_kernels(torch, span, errs, serve_launches, per_step, rt) -> list:
-    """Encode and decode at the 256-page serving span (49,152 rows of 16
-    bf16 values, phase 2's KV bits; 1.5 MB, in L2 as it is for the real
-    caller, which has just unpacked it), timed with CUDA events and with the
-    profiler's device time, beside the plain versions and the byte bound:
-    each input read once, each output written once, bases included; a few
-    integer operations per value, so bytes bound them."""
+# The cold encode: 2^24 bf16 values as the (layers, 2, t, C) transposed view
+# of a (2, layers, t, C) tensor, three of them rotated (beyond the 50 MB L2)
+EXP_DELTA_COLD = (2, 32, 1024, 256)
+
+
+def encode_bytes(view, group: int = 16) -> int:
+    """Bytes the fused cluster-and-encode must move: the view's values read
+    once (a ragged tail's repeated token once), the encoded groups and a
+    base byte per channel of each group written once."""
+    pages = math.prod(view.shape[:-2]) * -(-view.shape[-2] // group)
+    w = view.element_size()
+    return view.numel() * w + pages * view.shape[-1] * (group * w + 1)
+
+
+def time_exp_delta_kernels(torch, span, view, errs, serve_launches, per_step, rt,
+                           spans) -> list:
+    """The encode at the shapes the main path gives it, each timed by CUDA
+    events around back-to-back calls and by the profiler's device time,
+    beside its byte bound (a few integer operations a value: bytes bind),
+    the plain version and the parent's route for the same work
+    (``parent_span_encode``, every kernel of it): the 512-token serving span
+    as ``slot_kv_bits`` returns it ((4, 2, 512, 192), phase 2's bf16 KV; 1.5
+    MB, in L2 as it is for the real caller, which has just unpacked it), a
+    decode page fill (its first 16 tokens: 8 pages) and a cold 2^24 values
+    (EXP_DELTA_COLD, buffers rotated and outputs kept alive over three
+    calls).  Then the flat entry point (the (R, G, 1) view: the kernel's
+    direct path) at the span's (49,152, 16) rows and the decode there,
+    with the launch floor (an empty kernel)."""
+    from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.exp_delta import kernel as EK
     from repro_torch.kernels.exp_delta import ref as ER
 
     man, mask = EXP_DELTA_FIELDS[16]
+    enc_k, dec_k = "exp_delta_encode_kernel", "exp_delta_decode_kernel"
+    floor_ms = cuda_time_ms(lambda i: BK.launch_empty(), iters=200)
+    floor_dev = device_ms(lambda i: BK.launch_empty(), "bitplane_empty_kernel", 200)
+    outs = [None] * 3
+
+    def keep_out(i, t):
+        outs[i % 3] = t
+
+    def views_row(what, views, iters=200, plain_iters=20):
+        n = len(views)
+        return bitplane_row(
+            torch, what, lambda i: keep_out(i, EK.cluster_encode(views[i % n], 16, man, mask)),
+            lambda i: keep_out(i, ER.cluster_encode_ref(views[i % n], 16, man, mask)), enc_k,
+            encode_bytes(views[0]), iters, plain_iters,
+            parent=lambda i: keep_out(i, parent_span_encode(views[i % n])))
+
+    span_row = views_row(f"serving span view {tuple(view.shape)}", [view])
+    fill = view[:, :, :PAGE]
+    fill_row = views_row(f"decode page fill {tuple(fill.shape)}", [fill])
+    gen = torch.Generator(device=view.device).manual_seed(22)
+    cold = [torch.randint(0, 2**16, EXP_DELTA_COLD, generator=gen, device=view.device,
+                          dtype=torch.int32).to(torch.int16).transpose(0, 1) for _ in range(3)]
+    cold_row = views_row(f"cold {tuple(cold[0].shape)} view, 2^24 values", cold, iters=60,
+                         plain_iters=2)
+    del cold
+    outs[:] = [None] * 3
     enc, base = EK.encode(span, man, mask)
-    encode = lambda i: EK.encode(span, man, mask)  # noqa: E731
-    encode_plain = lambda i: ER.encode_ref(span, man, mask)  # noqa: E731
-    decode = lambda i: EK.decode(enc, base, man, mask)  # noqa: E731
-    decode_plain = lambda i: ER.decode_ref(enc, base, man, mask)  # noqa: E731
-    e_ms, e_dev = cuda_time_ms(encode, iters=200), device_ms(encode, "exp_delta_encode_kernel")
-    e_plain, e_plain_dev = cuda_time_ms(encode_plain, iters=50), device_ms(encode_plain, "", 20)
-    d_ms, d_dev = cuda_time_ms(decode, iters=200), device_ms(decode, "exp_delta_decode_kernel")
-    d_plain, d_plain_dev = cuda_time_ms(decode_plain, iters=50), device_ms(decode_plain, "", 20)
-    nbytes = 2 * span.numel() * span.element_size() + base.numel()
-    b_ms, b_by = bound_ms(nbytes, 0, BF16_TENSOR_FLOPS)
-    log(f"phase 6 (ms per call, CUDA events / profiler device time): exp_delta_encode "
-        f"{e_ms:.4f} / {e_dev:.4f}, decode {d_ms:.4f} / {d_dev:.4f} at {tuple(span.shape)} "
-        f"bf16 (bound {b_ms:.6f} by {b_by}, {nbytes} B; plain encode {e_plain:.4f} / "
-        f"{e_plain_dev:.4f}, decode {d_plain:.4f} / {d_plain_dev:.4f})")
+    flat_row = bitplane_row(torch, f"flat rows {tuple(span.shape)}",
+                            lambda i: EK.encode(span, man, mask),
+                            lambda i: ER.encode_ref(span, man, mask),
+                            enc_k,
+                            2 * span.numel() * span.element_size() + base.numel())
+    dec_row = bitplane_row(torch, f"flat rows {tuple(span.shape)}",
+                           lambda i: EK.decode(enc, base, man, mask),
+                           lambda i: ER.decode_ref(enc, base, man, mask), dec_k,
+                           2 * span.numel() * span.element_size() + base.numel())
+    torch.cuda.empty_cache()
+    for name, row in (("encode", span_row), ("encode", fill_row), ("encode", cold_row),
+                      ("encode", flat_row), ("decode", dec_row)):
+        parent = "" if "parent_route_ms" not in row else (
+            f"; parent route {row['parent_route_ms']:.4f} / {row['parent_route_device_ms']:.4f} "
+            f"({row['parent_route_kernels']} kernels)")
+        log(f"phase 6: exp_delta_{name} {row['shape']}: {row['ms']:.4f} / "
+            f"{row['device_ms']:.4f} ms (events / device); bound {row['bound_ms']:.6f} ms by "
+            f"{row['bound_by']} ({row['bound_bytes']} B), {row['bound_share']:.3f} of it; "
+            f"launch floor {floor_ms:.4f} / {floor_dev:.4f}; plain {row['plain_ms']:.4f} / "
+            f"{row['plain_device_ms']:.4f}{parent}")
     src = "src/repro_torch/csrc/exp_delta.cu"
-    common = {"route": "cuda", "source": src, "bound_ms": b_ms,
-              "bound_by": b_by, "bound_bytes": nbytes, "library_ms": None,
-              "library": "none"}
+    floor = {"launch_floor_ms": floor_ms, "launch_floor_device_ms": floor_dev}
+    keys = ("shape", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_by",
+            "bound_bytes", "bound_share")
     return [
-        {"name": "exp_delta_encode", **common,
+        {"name": "exp_delta_encode", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/exp_delta/kernel.py:44",
          "launches": serve_launches["exp_delta_encode"],
          "max_abs_err": float(errs["exp_delta_encode"]),
          "launches_per_decode_step": per_step["exp_delta_encode"],
          "launches_per_put_sequence": rt["encode_launches"] / rt["sequences"],
-         "ms": e_ms, "device_ms": e_dev, "plain_ms": e_plain, "plain_device_ms": e_plain_dev},
-        {"name": "exp_delta_decode", **common,
+         "span_kernels_between_unpack_and_pack": spans,
+         **{key: span_row[key] for key in keys + ("parent_route_ms", "parent_route_device_ms",
+                                                  "parent_route_kernels")},
+         "library_ms": None, "library": "none", **floor,
+         "shapes": [fill_row, cold_row, flat_row]},
+        {"name": "exp_delta_decode", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/exp_delta/kernel.py:69",
          "launches": rt["decode_launches"],
          "max_abs_err": float(errs["exp_delta_decode"]),
          "launches_per_get_sequence": rt["decode_launches"] / rt["gets"],
          "launches_in_serving": serve_launches["exp_delta_decode"],
-         "ms": d_ms, "device_ms": d_dev, "plain_ms": d_plain, "plain_device_ms": d_plain_dev},
+         **{key: dec_row[key] for key in keys},
+         "library_ms": None, "library": "none", **floor},
     ]
 
 
@@ -2681,7 +2904,11 @@ def time_flash_mix(torch, dev) -> dict:
     (``serving_chunks``; SmolLM-135M heads, a 1024-row slot, kv_valid the
     chunk's end), each held against the plain version and timed by device
     as the wrapper plans it and with its keys not split; the sums weight
-    each chunk by how often the run issues it (one layer's calls)."""
+    each chunk by how often the run issues it (one layer's calls).  Each
+    chunk's bound is counted as ``time_flash_chunks`` counts it: q read and
+    the output written, K and V of the valid keys read (bytes), and the
+    causal operations of this chunk's positions (``flash_work``) at the
+    bf16 tensor-core peak; the larger of the two, summed like the times."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ref as FR
 
@@ -2690,7 +2917,7 @@ def time_flash_mix(torch, dev) -> dict:
     k = torch.randn((1, S, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((1, S, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
     chunks = serving_chunks()
-    total = {"plan": 0.0, "unsplit": 0.0}
+    total = {"plan": 0.0, "unsplit": 0.0, "bound": 0.0}
     split = 0
     for (sq, start, end), n in sorted(chunks.items()):
         q = torch.randn((1, sq, hp, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -2709,17 +2936,23 @@ def time_flash_mix(torch, dev) -> dict:
         per_call = 1 + (p["splits"] > 1)
         t_plan = device_ms(run, "flash_attention_", 20, per_call)
         t_whole = device_ms(whole, "flash_attention_", 20)
+        b_ms, b_by = bound_ms(2 * (2 * q.numel() + 2 * end * hkv * hd),
+                              flash_work(pos, kv_valid, hp, hd, causal=True, window=0),
+                              BF16_TENSOR_FLOPS)
         total["plan"] += n * t_plan
         total["unsplit"] += n * t_whole
+        total["bound"] += n * b_ms
         split += n * (p["splits"] > 1)
         log(f"phase 6: flash_attention serving chunk {sq} at {start}, valid {end} (x{n}): "
             f"{p['splits']} splits of {p['tiles_per_split']} of {p['key_tiles']} key tiles "
-            f"{t_plan:.6f} ms device, not split {t_whole:.6f}")
+            f"{t_plan:.6f} ms device, not split {t_whole:.6f}; bound {b_ms:.6f} by {b_by}")
     log(f"phase 6: flash_attention over phase 3's {sum(chunks.values())} prefill chunks "
         f"({len(chunks)} distinct, {split} split), one layer: {total['plan']:.6f} ms device "
-        f"as planned, {total['unsplit']:.6f} not split")
+        f"as planned, {total['unsplit']:.6f} not split; bound {total['bound']:.6f} ms, "
+        f"{total['bound'] / total['plan']:.3f} of it as planned")
     return {"chunks": sum(chunks.values()), "distinct": len(chunks), "split_chunks": split,
-            "device_ms": total["plan"], "unsplit_device_ms": total["unsplit"]}
+            "device_ms": total["plan"], "unsplit_device_ms": total["unsplit"],
+            "bound_ms": total["bound"], "bound_share": total["bound"] / total["plan"]}
 
 
 def time_flash_kernel(torch, err: float, case: tuple, zamba: dict, chunk: dict) -> dict:
@@ -2806,7 +3039,7 @@ def main() -> int:
     ssd_checks = check_ssd_kernel(torch, dev)
     errs["ssd"] = ssd_checks["mamba2"][0]
     errs["flash_attention"], flash_inputs = check_flash_kernel(torch, dev)
-    exp_delta_errs, exp_delta_span = check_exp_delta_kernels(torch, dev)
+    exp_delta_errs, exp_delta_span, exp_delta_view = check_exp_delta_kernels(torch, dev)
     errs.update(exp_delta_errs)
     mark("2")
 
@@ -2834,6 +3067,7 @@ def main() -> int:
     del checks
     per_step = profile_decode(torch, model, params)
     cache, tok, keeps = snapshot(torch, model, params)
+    spans = write_span_kernels(torch, model, params)
     prefill = prefill_chunk_launches(torch, model, params, cache)
     decode = decode_launches(torch, model, params, cache, tok, keeps)
     teacher_forced(torch, model, params, cache, tok, keeps)
@@ -2858,8 +3092,8 @@ def main() -> int:
     kernels.append(time_ssd_kernel(torch, ssd_checks, mamba, zamba))
     kernels.append(time_flash_kernel(torch, errs["flash_attention"], flash_inputs, zamba,
                                      prefill))
-    kernels += time_exp_delta_kernels(torch, exp_delta_span, errs, fused_launches,
-                                      per_step, round_trip)
+    kernels += time_exp_delta_kernels(torch, exp_delta_span, exp_delta_view, errs,
+                                      fused_launches, per_step, round_trip, spans)
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err"):
             if key == "library_ms" and k[key] is None and k.get("library") == "none":

@@ -19,6 +19,7 @@ channel per group, mirroring the paper's per-block header fields.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -305,7 +306,7 @@ class EncodedKV:
 
     planes: object  # (bits, n_groups * gb) uint8
     bases: object  # (n_groups, channels) uint8
-    shape: tuple  # (tokens, channels), the tail group's padding excluded
+    shape: tuple  # (tokens, channels); encode_kv's excludes the tail group's padding
     group: int
 
     def to_host(self) -> "EncodedKV":
@@ -332,37 +333,47 @@ def encode_kv(kv, spec: FloatSpec, cfg: StoreConfig = StoreConfig()) -> EncodedK
     """The KV transform of the bit-plane, clustered layout, on the device
     ``kv`` lies on (a NumPy input runs on the CPU).
 
-    ``kv``: raw bits or values, (tokens, channels) or (pages, page_tokens,
-    channels) with ``page_tokens`` a multiple of ``cfg.group``.  The tail
-    group of a 2-D input is padded by repeating the last token.  Cluster,
-    exponent delta over all groups at once, then one bit-plane pack: each
-    group's channels * group values are padded to whole octets, so group g
-    of plane p is columns ``[g * gb, (g + 1) * gb)`` of the one pack, byte
-    for byte the stream the reference concatenates group by group."""
+    ``kv``: raw bits or values, (tokens, channels), or (..., tokens,
+    channels) whose tokens are whole groups of ``cfg.group`` (a page's
+    (pages, page_tokens, channels)); any strides but dense channels, read
+    in place.  The tail group of a 2-D input is padded by repeating the
+    last token.  Cluster and exponent delta over all groups at once (one
+    launch), groups in row-major order of the leading dims, then one
+    bit-plane pack: each group's channels * group values are padded to
+    whole octets, so group g of plane p is columns ``[g * gb, (g + 1) *
+    gb)`` of the one pack, byte for byte the stream the reference
+    concatenates group by group."""
     if cfg.layout != "bitplane" or not cfg.kv_cluster:
         raise ValueError("encode_kv is the transform of the bit-plane clustered "
                          f"layout; this store has layout={cfg.layout!r}, "
                          f"kv_cluster={cfg.kv_cluster}")
     u = bits_tensor(kv, spec)
-    if u.dim() == 3:
-        if u.shape[1] % cfg.group:
-            raise ValueError(f"pages of {u.shape[1]} tokens are no whole groups of {cfg.group}")
-        u = u.reshape(-1, u.shape[-1])
-        t = u.shape[0]
-    else:
-        t = u.shape[0]
-        pad = (-t) % cfg.group
-        if pad:
-            u = torch.cat([u, u[-1:].expand(pad, u.shape[1])])
-    c = u.shape[1]
+    if u.dim() < 2:
+        raise ValueError(f"KV is (..., tokens, channels), got {tuple(u.shape)}")
+    if u.dim() > 2 and u.shape[-2] % cfg.group:
+        raise ValueError(f"pages of {u.shape[-2]} tokens are no whole groups of {cfg.group}")
+    encoded = _encode_groups(u, spec, cfg)
+    if u.dim() == 2:  # the tail group's padding excluded
+        return dataclasses.replace(encoded, shape=tuple(u.shape))
+    return encoded
+
+
+def _encode_groups(u: torch.Tensor, spec: FloatSpec, cfg: StoreConfig) -> EncodedKV:
+    """:func:`encode_kv` of raw bits (..., tokens, channels) whose tokens
+    need not be whole groups: each leading index's ragged tail group is
+    padded by repeating its last token (in the kernel, on a CUDA tensor),
+    and ``shape`` counts the padded groups' tokens."""
+    c = u.shape[-1]
     encoded, base = kv_clustering.cluster_and_encode(u, spec, cfg.group,
                                                      mode=cfg.decorrelate)
-    flat = encoded.reshape(encoded.shape[0], c * cfg.group)
+    base = base.reshape(-1, c)
+    n_groups = base.shape[0]
+    flat = encoded.reshape(n_groups, c * cfg.group)
     gb = _group_bytes(c, cfg.group)
     if gb * 8 != c * cfg.group:
         flat = torch.nn.functional.pad(flat, (0, gb * 8 - c * cfg.group))
     planes = bitplane_ops.pack_raw(flat.reshape(-1), spec.bits)
-    return EncodedKV(planes, base, (t, c), cfg.group)
+    return EncodedKV(planes, base, (n_groups * cfg.group, c), cfg.group)
 
 
 def compress_encoded(encoded: EncodedKV, spec: FloatSpec,
@@ -428,15 +439,25 @@ def compress_kv(kv, spec: FloatSpec, cfg: StoreConfig = StoreConfig()) -> Compre
     return dataclasses.replace(ct, shape=(t, c), kind="kv")
 
 
-def encode_pages(pages: torch.Tensor, spec: FloatSpec, cfg: StoreConfig) -> list:
-    """(n, page_tokens, channels) raw bits (tail pages already padded) ->
-    one page object per page for the store's ``put_page``: an
-    :class:`EncodedKV` on the host for the bit-plane clustered layout (one
-    :func:`encode_kv` over all pages, one device->host copy), the page's
-    raw bits in NumPy for the host layouts."""
-    if cfg.layout == "bitplane" and cfg.kv_cluster:
-        return encode_kv(pages, spec, cfg).to_host().split(pages.shape[0])
-    return list(_host_bits(pages))
+def encode_pages(kv: torch.Tensor, spec: FloatSpec, cfg: StoreConfig,
+                 page_tokens: int) -> list:
+    """(..., tokens, channels) raw bits (any strides, channels dense) -> one
+    page object per page of ``page_tokens`` tokens, in row-major order of
+    (..., page), the tail page padded by repeating the last token, for the
+    store's ``put_page``: an :class:`EncodedKV` on the host for the
+    bit-plane clustered layout (one encode over all pages, on the view
+    itself, and one device->host copy), the page's raw bits in NumPy for
+    the host layouts.  The encode pads whole groups; anything else pads
+    the view to whole pages first."""
+    if kv.dim() == 2:
+        kv = kv[None]
+    clustered = cfg.layout == "bitplane" and cfg.kv_cluster
+    if not (clustered and page_tokens == cfg.group):
+        kv = kv_clustering.pad_tail(kv, page_tokens)
+    n = math.prod(kv.shape[:-2]) * -(-kv.shape[-2] // page_tokens)
+    if clustered:
+        return _encode_groups(kv, spec, cfg).to_host().split(n)
+    return list(_host_bits(kv.reshape(n, page_tokens, kv.shape[-1])))
 
 
 def _decompress_planes(codec, ct: CompressedTensor, keep: int) -> tuple:

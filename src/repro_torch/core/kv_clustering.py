@@ -11,7 +11,8 @@ device the input lies on.  Each step is lossless and invertible:
    minimum exponent is subtracted from every token's exponent — the
    exponent-delta kernel on a CUDA tensor, its plain version on the CPU.
    The paper's alternative, XOR with the previous token, and grouping alone
-   are plain tensor ops (the reference has no kernel for them).
+   are plain tensor ops (the reference has no kernel for them).  The
+   encode takes the token-major tokens and does step 1 itself.
 3. **Bit-plane disaggregation** is then applied by the block store.
 """
 
@@ -25,26 +26,28 @@ from repro_torch.kernels.exp_delta import ops as exp_delta_ops
 DEFAULT_GROUP = 16  # tokens per group == paper's page size
 
 
-def cluster(kv: torch.Tensor, group: int = DEFAULT_GROUP) -> torch.Tensor:
-    """(tokens, channels) -> (n_groups, channels, group), channel-major.
+def pad_tail(kv: torch.Tensor, group: int) -> torch.Tensor:
+    """(..., t, C) -> (..., ceil(t / group) * group, C): a ragged tail group
+    padded by repeating token t - 1 (repetition keeps the pad out of the
+    delta statistics).  Returns ``kv`` itself when t is whole groups."""
+    pad = (-kv.shape[-2]) % group
+    if not pad:
+        return kv
+    tail = kv[..., -1:, :].expand(*kv.shape[:-2], pad, kv.shape[-1])
+    return torch.cat([kv, tail], dim=-2)
 
-    ``tokens`` must be a multiple of ``group`` (callers pad the tail group).
-    """
-    t, c = kv.shape
-    assert t % group == 0, f"token count {t} not a multiple of group {group}"
-    return kv.reshape(t // group, group, c).permute(0, 2, 1).contiguous()
+
+def cluster(kv: torch.Tensor, group: int = DEFAULT_GROUP) -> torch.Tensor:
+    """(..., t, C) token-major -> (..., ceil(t / group), C, group)
+    channel-major groups, contiguous, the tail group padded
+    (:func:`pad_tail`)."""
+    p = pad_tail(kv, group)
+    return p.unflatten(-2, (p.shape[-2] // group, group)).transpose(-1, -2).contiguous()
 
 
 def uncluster(grouped: torch.Tensor) -> torch.Tensor:
     g, c, n = grouped.shape
     return grouped.permute(0, 2, 1).reshape(g * n, c)
-
-
-def exp_delta_encode(u: torch.Tensor, spec: FloatSpec) -> tuple:
-    """Delta-encode exponents along the last (token) axis of ``u`` (...,
-    channels, group).  Returns (encoded, base (..., channels) uint8)."""
-    enc, base = exp_delta_ops.encode(u.reshape(-1, u.shape[-1]), spec)
-    return enc.reshape(u.shape), base.reshape(u.shape[:-1])
 
 
 def exp_delta_decode(encoded: torch.Tensor, base: torch.Tensor,
@@ -75,21 +78,23 @@ def cluster_and_encode(
     kv_u: torch.Tensor, spec: FloatSpec, group: int = DEFAULT_GROUP,
     mode: str = "delta",
 ) -> tuple:
-    """(tokens, channels) raw bits -> (encoded grouped bits (G, C, group),
-    bases (G, C) uint8).
+    """(..., tokens, channels) raw bits -> (encoded grouped bits (...,
+    n_groups, channels, group), bases (..., n_groups, channels) uint8); a
+    ragged tail group is padded by repeating the last token.
 
-    ``mode``: 'delta' (exponent delta, default), 'xor', or 'none' (grouping
-    only — the paper's grouping-without-de-correlation ablation).
+    ``mode``: 'delta' (exponent delta, default: on a CUDA tensor one kernel
+    launch reads the token-major view in place and writes the groups;
+    an integer spec, which has no exponent, is grouped only), 'xor', or
+    'none' (grouping only — the paper's grouping-without-de-correlation
+    ablation).
     """
+    if mode not in ("delta", "xor", "none"):
+        raise ValueError(f"unknown de-correlation mode {mode!r}")
+    if mode == "delta" and spec.exp_bits:
+        return exp_delta_ops.cluster_encode(kv_u, spec, group)
     grouped = cluster(kv_u, group)
     zeros = torch.zeros(grouped.shape[:-1], dtype=torch.uint8, device=grouped.device)
-    if mode == "delta":
-        return exp_delta_encode(grouped, spec)
-    if mode == "xor":
-        return xor_encode(grouped), zeros
-    if mode == "none":
-        return grouped, zeros
-    raise ValueError(f"unknown de-correlation mode {mode!r}")
+    return (xor_encode(grouped) if mode == "xor" else grouped), zeros
 
 
 def decode_and_uncluster(

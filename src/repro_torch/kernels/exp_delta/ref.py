@@ -1,6 +1,9 @@
 """Plain PyTorch versions of the exponent-delta encode and decode (the
 reference's ``kernels/exp_delta/ref.py``), on raw bits in the integer
-containers of :mod:`.kernel`.
+containers of :mod:`.kernel`, and of the fused cluster-and-encode of a
+token-major view (the reference's ``core/kv_clustering.py``
+``cluster_and_encode_np`` after the store's tail pad): the port's own
+grouping, ``core/kv_clustering.py`` ``cluster``, then the encode.
 
 The arithmetic runs on values widened to ``int64`` and masked to their
 container's width, so a 16-bit pattern that rides in ``int16`` never
@@ -12,6 +15,8 @@ chip smoke script holds each kernel against them on the card.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import kv_clustering
 
 
 def _widen(u: torch.Tensor) -> torch.Tensor:
@@ -45,3 +50,10 @@ def decode_ref(enc: torch.Tensor, base: torch.Tensor, man_bits: int,
     exp = (((wide >> man_bits) & exp_mask) + base.to(torch.int64)[..., None]) & exp_mask
     field = exp_mask << man_bits
     return _narrow((wide & ~field) | (exp << man_bits), enc.dtype)
+
+
+def cluster_encode_ref(u: torch.Tensor, group: int, man_bits: int,
+                       exp_mask: int) -> tuple:
+    """(..., t, C) token-major raw bits -> (encoded (..., ceil(t / group), C,
+    group), base (..., ceil(t / group), C) uint8): pad, cluster, encode."""
+    return encode_ref(kv_clustering.cluster(u, group), man_bits, exp_mask)

@@ -57,7 +57,7 @@ from repro_torch.serving.kv_cache import (
     CompressedKVStore,
     PageEvictedError,
     PageKey,
-    split_pages,
+    page_valid,
 )
 from repro_torch.telemetry.collector import NULL_COLLECTOR
 
@@ -307,15 +307,15 @@ class KVBackend(abc.ABC):
             .transpose(0, 1).view(torch.int16)
 
     def encode_span(self, bits: torch.Tensor) -> tuple:
-        """Raw KV bits (..., tokens, channels) -> (one page object per
-        (..., page) in row-major order, valid tokens per page): the tail
-        page padded by repeating the last token, every page transformed in
-        one ``encode_kv`` call on the device, the planes and bases copied
-        to the host once (``compressed_store.encode_pages``)."""
-        pages, valid = split_pages(bits)
+        """Raw KV bits (..., tokens, channels), e.g. :meth:`slot_kv_bits`'
+        view -> (one page object per (..., page) in row-major order, valid
+        tokens per page): every page transformed in one ``encode_kv`` call
+        on the device that reads the view in place and pads the tail page
+        by repeating the last token, the planes and bases copied to the
+        host once (``compressed_store.encode_pages``)."""
         store = self.tiers[0].store
-        return encode_pages(pages.reshape(-1, *pages.shape[-2:]), store.spec,
-                            store.config), valid
+        return (encode_pages(bits, store.spec, store.config, PAGE_TOKENS),
+                page_valid(bits.shape[-2]))
 
     # --------------------------------------------------------- slot lifecycle
     def bind_slot(self, slot_id: int, rid: int) -> None:

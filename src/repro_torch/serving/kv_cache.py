@@ -47,19 +47,12 @@ from repro_torch.core.controller import MemoryController
 PAGE_TOKENS = 16
 
 
-def split_pages(kv: torch.Tensor) -> tuple:
-    """(..., tokens, channels) -> ((..., n_pages, PAGE_TOKENS, channels),
-    valid tokens per page).  The tail page is padded by repeating the last
-    token, so the pad never pollutes the delta-decorrelation stats; the
-    valid counts keep the store's logical accounting pad-free."""
-    t = kv.shape[-2]
-    pad = (-t) % PAGE_TOKENS
-    if pad:
-        tail = kv[..., -1:, :].expand(*kv.shape[:-2], pad, kv.shape[-1])
-        kv = torch.cat([kv, tail], dim=-2)
-    n = kv.shape[-2] // PAGE_TOKENS
-    valid = [min(PAGE_TOKENS, t - p * PAGE_TOKENS) for p in range(n)]
-    return kv.reshape(*kv.shape[:-2], n, PAGE_TOKENS, kv.shape[-1]), valid
+def page_valid(tokens: int) -> list:
+    """Valid tokens of each PAGE_TOKENS page of ``tokens`` tokens: the tail
+    page is padded when it is transformed (by repeating the last token, so
+    the pad never pollutes the delta-decorrelation stats); the valid
+    counts keep the store's logical accounting pad-free."""
+    return [min(PAGE_TOKENS, tokens - p) for p in range(0, tokens, PAGE_TOKENS)]
 
 
 @dataclasses.dataclass
@@ -191,16 +184,18 @@ class CompressedKVStore:
     # -------------------------------------------------------------- sequences
     def put_sequence(self, seq_id: int, layer: int, stream: str, kv,
                      first_page: int = 0, planes: int | None = None) -> int:
-        """kv: (tokens, channels), NumPy (bf16 as uint16) or a tensor; pads
-        the tail page.  All pages are transformed in one ``encode_kv`` on
+        """kv: (tokens, channels), NumPy (bf16 as uint16) or a tensor (any
+        strides, channels dense, read in place); the tail page is padded in
+        the transform.  All pages are transformed in one ``encode_kv`` on
         the tensor's device (a NumPy input on the CPU), then put page by
         page.  Returns pages written.
 
         ``first_page`` offsets the page index — the scheduler streams decode
         pages into the store incrementally as each fills."""
-        pages, valid = split_pages(bits_tensor(kv, self.spec))
-        for p, (page, v) in enumerate(zip(encode_pages(pages, self.spec, self.config),
-                                          valid)):
+        bits = bits_tensor(kv, self.spec)
+        valid = page_valid(bits.shape[0])
+        for p, (page, v) in enumerate(zip(encode_pages(bits, self.spec, self.config,
+                                                       PAGE_TOKENS), valid)):
             self.put_page(PageKey(seq_id, layer, first_page + p, stream), page,
                           planes=planes, valid_tokens=v)
         return len(valid)

@@ -7,6 +7,7 @@ isolation and refusal without a GPU; and the flash rows' helpers (phase
 shapes)."""
 
 import ast
+import math
 import contextlib
 import os
 import subprocess
@@ -403,3 +404,34 @@ def test_digest_script_refuses_to_run_without_a_gpu():
                           capture_output=True, text=True, env=env, cwd=REPO, timeout=120)
     assert proc.returncode == 2
     assert "digest" not in proc.stdout
+
+
+@pytest.mark.parametrize("kind,shape,group,bits", C.EXP_DELTA_VIEWS)
+def test_exp_delta_views_take_the_path_they_name(kind, shape, group, bits):
+    """Phase 2's views of the fused cluster-and-encode hold the shapes they
+    name, and the encode's plan takes the path phase 2 claims for each: the
+    byte path at an unaligned start and at rows of no whole vectors (one
+    channel's 2-byte rows with a ragged tail among them), the direct path
+    for one channel of whole groups, 16-byte vectors elsewhere."""
+    from repro_torch.kernels.exp_delta import kernel as EK
+
+    n = shape[0] * (shape[1] + 8) if kind == "wide" else math.prod(shape) + 1
+    u = torch.zeros(n, dtype={8: torch.uint8, 16: torch.int16, 32: torch.int32}[bits])
+    view = C.encode_view(u, kind, shape)
+    want = {"span": (shape[1], shape[0], *shape[2:]), "reactivated": shape[2:]}
+    assert tuple(view.shape) == want.get(kind, shape)
+    plan = EK.plan(EK.layout(view, group), u.element_size(), view.data_ptr())
+    path = "bytes" if kind in ("offset", "wide") or shape[-1] == 1 else "vec"
+    if shape[-1] == 1 and shape[-2] % group == 0:
+        path = "direct"
+    assert plan["path"] == path
+
+
+def test_encode_bytes_count_each_value_once():
+    """The encode's byte bound: the serving span reads and writes its 786,432
+    bf16 values once and writes a base per channel of each of its 256
+    pages; a ragged tail's repeated token is read once."""
+    span = torch.zeros((2, 4, 512, 192), dtype=torch.int16).transpose(0, 1)
+    assert C.encode_bytes(span) == 2 * 2 * 786_432 + 256 * 192 == 3_194_880
+    assert C.encode_bytes(torch.zeros((37, 192), dtype=torch.int16)) == \
+        37 * 192 * 2 + 3 * 192 * (16 * 2 + 1)

@@ -25,6 +25,10 @@ exponent-delta encode and decode are integer transforms and, like the KV
 store's blobs and decoded pages, must match bit for bit.
 """
 
+import math
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -41,6 +45,9 @@ from repro_torch.kernels.flash_attention import ref as FR
 from repro_torch.kernels.ssd import kernel as SK
 from repro_torch.kernels.ssd import ops as SO
 from repro_torch.kernels.ssd import ref as SR
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as C  # noqa: E402
 
 MATMUL_TOL = 1e-4
 SSD_REL_TOL = 1e-4
@@ -469,6 +476,53 @@ def test_cuda_exp_delta_matches_plain_on_card(rows, g, bits):
         assert torch.equal(EK.decode(trunc, base, man, mask),
                            ER.decode_ref(trunc, base, man, mask))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,g", [("offset", 16), ("offset", 12), ("wide", 16),
+                                    ("wide", 8)])
+def test_cuda_exp_delta_flat_rows_read_in_place(kind, g):
+    """The flat entry point reads its (R, G) rows in place at any start and
+    row stride (one value past an aligned start; rows inside wider rows),
+    through the staged path or the direct one as the plan decides, bit for
+    bit against the plain version, one launch."""
+    dev = _cuda()
+    man, mask = C.EXP_DELTA_FIELDS[16]
+    gen = torch.Generator(device=dev).manual_seed(g)
+    rows = 1000
+    u = torch.randint(0, 1 << 16, (rows * (g + 4) + 1,), generator=gen, device=dev,
+                      dtype=torch.int64)
+    u = ER._narrow(u, torch.int16)
+    u = u[1 : rows * g + 1].view(rows, g) if kind == "offset" else \
+        u[: rows * (g + 4)].view(rows, g + 4)[:, :g]
+    EK.reset_launches()
+    enc, base = EK.encode(u, man, mask)
+    torch.cuda.synchronize()
+    assert EK.LAUNCHES["exp_delta_encode"] == 1
+    enc_r, base_r = ER.encode_ref(u, man, mask)
+    assert torch.equal(enc, enc_r) and torch.equal(base, base_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,group,bits", C.EXP_DELTA_VIEWS)
+def test_cuda_cluster_encode_matches_plain_on_card(kind, shape, group, bits):
+    """The token-major view read in place, clustered, tail-padded and
+    encoded in one launch, bit for bit against the plain version (pad,
+    cluster, encode_ref), at chip_smoke's phase-2 views: the memory tier's,
+    every container, G 8, 12 and 16, the byte path and channel chunks."""
+    dev = _cuda()
+    man, mask = C.EXP_DELTA_FIELDS[bits]
+    gen = torch.Generator(device=dev).manual_seed(sum(shape) + group)
+    n = shape[0] * (shape[1] + 8) if kind == "wide" else math.prod(shape) + 1
+    u = torch.randint(0, 1 << bits, (n,), generator=gen, device=dev, dtype=torch.int64)
+    view = C.encode_view(ER._narrow(u, K.CONTAINERS[bits // 8]), kind, shape)
+    EK.reset_launches()
+    enc, base = EK.cluster_encode(view, group, man, mask)
+    torch.cuda.synchronize()
+    assert EK.LAUNCHES["exp_delta_encode"] == 1
+    enc_r, base_r = ER.cluster_encode_ref(view, group, man, mask)
+    assert enc.shape == enc_r.shape and base.shape == base_r.shape
+    assert torch.equal(enc, enc_r) and torch.equal(base, base_r)
 
 
 def _kv_bits(dev, tokens, channels, seed):

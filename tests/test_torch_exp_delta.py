@@ -10,6 +10,8 @@ transforms of raw bits and codec blobs.
     PYTHONPATH=src python -m pytest -q tests/test_torch_exp_delta.py
 """
 
+import math
+
 import ml_dtypes
 import numpy as np
 import pytest
@@ -196,18 +198,25 @@ def test_get_sequence_miss_charges_like_reference(device):
     assert ts.controller.stats.totals == js.controller.stats.totals
 
 
+def _pages(shape) -> int:
+    """Pages of 16 tokens an encode call holds: its (..., tokens, channels)
+    view's leading dims times the pages of its tokens."""
+    return math.prod(shape[:-2]) * -(-shape[-2] // 16)
+
+
 def test_serving_backend_encodes_each_span_once(monkeypatch):
     """The backend transforms every (layer, stream, page) of a written span
-    in one ``encode_kv`` call, and each re-activated page in one; the
+    in one encode call (``compressed_store._encode_groups``, the transform
+    ``encode_kv`` runs too), and each re-activated page in one; the
     backend's own counts agree with the calls."""
     calls = []
-    real = TS.encode_kv
+    real = TS._encode_groups
 
     def counting(*args, **kwargs):
         calls.append(args[0].shape)
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(TS, "encode_kv", counting)
+    monkeypatch.setattr(TS, "_encode_groups", counting)
     spans = []
     real_span = backend_base.KVBackend._write_span
 
@@ -216,7 +225,7 @@ def test_serving_backend_encodes_each_span_once(monkeypatch):
         real_span(self, slot_id, t0, t1)
         # one call, holding every page of the span: stored layers x 2 streams
         assert len(calls) == before + 1
-        assert calls[-1][0] == self.stored_layers() * 2 * -(-(t1 - t0) // 16)
+        assert _pages(calls[-1]) == self.stored_layers() * 2 * -(-(t1 - t0) // 16)
         spans.append((t0, t1))
 
     monkeypatch.setattr(backend_base.KVBackend, "_write_span", span)
@@ -236,4 +245,4 @@ def test_serving_backend_encodes_each_span_once(monkeypatch):
     assert counts["write_spans"] == len(spans) > 0
     assert counts["reactivations"] > 0  # the budget evicted pages that came back
     assert len(calls) == counts["write_spans"] + counts["reactivations"]
-    assert sum(shape[0] == 1 for shape in calls) >= counts["reactivations"]
+    assert sum(_pages(shape) == 1 for shape in calls) >= counts["reactivations"]
