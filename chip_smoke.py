@@ -88,6 +88,22 @@ Phases (any failure exits non-zero; no phase's error is caught):
    8, 4 and the ladder's per-page keeps (each equal to the CPU store's
    read); one encode and one pack launch per put, one unpack and one
    decode launch per get.
+3p. Shared-prefix pages and compressed weight streaming at the serving
+   width: phase 3's model, ladder and engine config serve a 20-request
+   ``make_trace`` mix (chat behind a 384-token and agentic turns behind a
+   256-token shared prompt, long documents with none; submitted at their
+   arrival steps, the lane engine unbounded) three ways: (a) sharing off,
+   (b) on, (c) on with the weights streamed compressed.  Each run's launch
+   counts are reset before and read after it (flash 30 a prefill chunk the
+   run made, one unpack a prefix snapshot, one pack an adoption); (b)
+   matched, skipped chunks and deduplicated bytes, its resident shared
+   bytes are the shared pages', the first adoption equals the donor
+   snapshot bit for bit, and (a)'s prefilled tokens less (b)'s are (b)'s
+   matched tokens; (c)'s tokens and KV byte counters equal (b)'s, each
+   layer's weights are charged once a pass, and (c)'s Perfetto trace
+   validates with one weight event a fetch.  Where (a) and (b) part,
+   check runs repeat both under a ``DecodeWatch`` and each run's row at
+   every first divergence is held to the plain attention on its own cache.
 4. The paper-pipeline quickstart (``repro_torch.quickstart``) on the card,
    launch counts reset before and read after (two packs, one
    exponent-delta encode for the KV surrogate, two matmuls): its byte
@@ -182,6 +198,24 @@ SOURCES = ("paged_attention.cu", "bitplane.cu", "bitplane_matmul.cu", "ssd.cu",
            "flash_attention.cu", "exp_delta.cu")
 
 B, S, HKV, REP, HD, BITS = 8, 1024, 3, 3, 64, 16
+# integer report counters that came with shared-prefix pages: the phase-3
+# digest leaves them out, so that it compares with trees from before them
+NEW_REPORT_KEYS = ("prefill_chunks_skipped", "prefix_requests_matched",
+                   "prefix_tokens_matched", "prefix_pages_matched", "prefix_bytes_deduped")
+# Phase 3p's request mix: make_trace's three classes at deployment sizes on
+# a 1,024-token context (name, shared prefix, suffix range, new tokens,
+# weight): chat turns behind a 384-token system prompt, agentic loops
+# behind a 256-token tool preamble, long documents with nothing shared
+PREFIX_CLASSES = (("chat", 384, (16, 96), (16, 48), 0.6),
+                  ("agentic", 256, (16, 64), (24, 64), 0.2),
+                  ("longdoc", 0, (300, 600), (8, 32), 0.2))
+# 20 requests: at 32 and at 24 the phase took 201 and 154 s on the card,
+# past the 150 s it is given (PERF.md §6)
+PREFIX_REQUESTS = 20
+# each timed phase-3p run's profiler window: this many scheduler steps
+# from this step on (past the last arrival, step 25; requests that waited
+# for a slot may still prefill in it)
+PREFIX_WINDOW = (60, 4)
 # tokens of a memory-tier page
 PAGE = 16
 LADDER = [(4, 16), (4, 12), (-1, 8)]
@@ -1014,19 +1048,10 @@ class DecodeWatch:
     def _plain(self, params, token, cache, keeps, decode_kernel):
         """This step's logits again, through ``plain_attention()``, on a
         copy of the cache."""
-        from repro_torch.kernels.bitplane import kernel as BK
-        from repro_torch.kernels.exp_delta import kernel as EK
-        from repro_torch.kernels.flash_attention import kernel as FK
-        from repro_torch.kernels.paged_attention import kernel as K
-
-        mods = (K, BK, FK, EK)
-        saved = [dict(m.LAUNCHES) for m in mods]
         c = {k: v.clone() for k, v in cache.items()}
         c["len"] = cache["len"] - 1
-        with plain_attention():
+        with uncounted(), plain_attention():
             plain, _ = self.orig(params, token, c, keeps=keeps, decode_kernel=decode_kernel)
-        for m, s in zip(mods, saved):
-            m.LAUNCHES.update(s)
         return plain
 
 
@@ -1055,9 +1080,11 @@ def check_repeat(kernel: str, timed, check) -> None:
                              f"{[(key, t_rep[key], c_rep[key]) for key in keys]}")
 
 
-def check_fused_against_rung(torch, fused_reqs, rung_reqs, first, fw, rw) -> None:
+def check_fused_against_rung(torch, fused_reqs, rung_reqs, first, fw, rw,
+                             names=("fused", "rung"), phase="phase 3") -> None:
     """Phase 3's check of the two serving runs, from their check runs'
-    watches.  Up to each request's first divergent output both fed the same
+    watches (``names`` the two runs, ``phase`` the log lines' prefix; phase
+    3p holds its sharing-off and sharing-on runs to it the same way).  Up to each request's first divergent output both fed the same
     tokens.  At every first divergence each run's row must lie within
     LOGITS_RTOL_OF_MAX of its largest logit of the plain attention's row on
     that run's own cache (the teacher-forced bound): the kernel and its
@@ -1107,6 +1134,7 @@ def check_fused_against_rung(torch, fused_reqs, rung_reqs, first, fw, rw) -> Non
         (rd - pr).abs().amax(-1), torch.maximum(rd.abs().amax(-1), pr.abs().amax(-1)),
         pf.argmax(-1).float(), pr.argmax(-1).float()], dim=1).cpu().tolist()
 
+    nf, nr = names
     split, faults = {}, []
     for rid, j in keys:  # in output order per request
         if rec[(rid, j)][4] and rid not in split:
@@ -1116,28 +1144,28 @@ def check_fused_against_rung(torch, fused_reqs, rung_reqs, first, fw, rw) -> Non
     for (rid, j), (d_fp, s_fp, d_rp, s_rp, top_pf, top_pr) in zip(div, vs_plain):
         d, scale, gap_f, gap_r, _ = rec[(rid, j)]
         fo, ro = outputs[rid]
-        moved = [name for name, tok, top in (("fused", fo[j], top_pf), ("rung", ro[j], top_pr))
+        moved = [name for name, tok, top in ((nf, fo[j], top_pf), (nr, ro[j], top_pr))
                  if tok != int(top)]
         worst_plain = max(worst_plain, d_fp / s_fp, d_rp / s_rp)
-        log(f"phase 3 divergence: request {rid} at output {j}/{len(fo)}: tokens fused {fo[j]} "
-            f"rung {ro[j]}, plain on each run's cache {int(top_pf)} / {int(top_pr)} (left its "
-            f"plain top: {', '.join(moved) or 'neither'}); top-2 gap fused {gap_f:.5f} rung "
-            f"{gap_r:.5f}; max|fused-rung| {d:.5f} (tolerance {LOGITS_RTOL_OF_MAX * scale:.5f}), "
-            f"max|fused-plain| {d_fp:.5f} ({LOGITS_RTOL_OF_MAX * s_fp:.5f}), max|rung-plain| "
+        log(f"{phase} divergence: request {rid} at output {j}/{len(fo)}: tokens {nf} {fo[j]} "
+            f"{nr} {ro[j]}, plain on each run's cache {int(top_pf)} / {int(top_pr)} (left its "
+            f"plain top: {', '.join(moved) or 'neither'}); top-2 gap {nf} {gap_f:.5f} {nr} "
+            f"{gap_r:.5f}; max|{nf}-{nr}| {d:.5f} (tolerance {LOGITS_RTOL_OF_MAX * scale:.5f}), "
+            f"max|{nf}-plain| {d_fp:.5f} ({LOGITS_RTOL_OF_MAX * s_fp:.5f}), max|{nr}-plain| "
             f"{d_rp:.5f} ({LOGITS_RTOL_OF_MAX * s_rp:.5f}); plane maps "
             + (f"differ since output {split[rid]}" if rid in split else "equal at every step"))
         if d_fp > LOGITS_RTOL_OF_MAX * s_fp or d_rp > LOGITS_RTOL_OF_MAX * s_rp:
             faults.append(("kernel vs plain", rid, j, d_fp, d_rp))
     clean = [key for key in keys if key[0] not in split or key[1] < split[key[0]]]
     worst = max((rec[key][0] / rec[key][1] for key in clean), default=0.0)
-    faults += [("fused vs rung", *key, rec[key][0], LOGITS_RTOL_OF_MAX * rec[key][1])
+    faults += [(f"{nf} vs {nr}", *key, rec[key][0], LOGITS_RTOL_OF_MAX * rec[key][1])
                for key in clean if rec[key][0] > LOGITS_RTOL_OF_MAX * rec[key][1]]
     prefix = [first.get(fr.rid, len(fr.output)) for fr in fused_reqs]
-    log(f"phase 3: first divergent output per request (agreeing prefix lengths) {prefix}; "
+    log(f"{phase}: first divergent output per request (agreeing prefix lengths) {prefix}; "
         f"{sum(rid not in split for rid in first)} first divergences on equal plane maps, "
         f"{sum(rid in split for rid in first)} after the maps split; {len(clean)} of "
         f"{len(keys)} decode rows with equal history read equal plane maps, max "
-        f"|fused-rung| / max|logit| over them {worst:.5f}; at the {len(div)} first "
+        f"|{nf}-{nr}| / max|logit| over them {worst:.5f}; at the {len(div)} first "
         f"divergences max |kernel-plain| / max|logit| {worst_plain:.5f} (bound "
         f"{LOGITS_RTOL_OF_MAX})")
     if faults:
@@ -1174,18 +1202,12 @@ def serve(torch, model, params, kernel: str, first=None) -> tuple:
     runs) it is a check run, which repeats the timed run under a
     ``DecodeWatch`` and a ``write_job_ledger`` (returned; None for a timed
     run)."""
-    from repro_torch.kernels.bitplane import kernel as BK
-    from repro_torch.kernels.exp_delta import kernel as EK
-    from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.serving import ContinuousScheduler
 
     sched = ContinuousScheduler(model, params, engine_config(kernel))
     reqs = make_requests()
-    K.reset_launches()
-    BK.reset_launches()
-    FK.reset_launches()
-    EK.reset_launches()
+    for m in launch_modules():
+        m.reset_launches()
     watch = ledger = None
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
@@ -1197,7 +1219,7 @@ def serve(torch, model, params, kernel: str, first=None) -> tuple:
         sched.run_until_drained()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**K.LAUNCHES, **BK.LAUNCHES, **FK.LAUNCHES, **EK.LAUNCHES}
+    launches = {k: v for m in launch_modules() for k, v in m.LAUNCHES.items()}
     rep = {**sched.report(), "engine_jobs_cancelled": sched.stats["engine_jobs_cancelled"]}
     encodes = sched.backend.page_encodes
     if not all(r.done and not r.truncated and len(r.output) == r.max_new_tokens
@@ -1442,14 +1464,18 @@ def decode_launches(torch, model, params, cache, tok, keeps) -> dict:
     return launches
 
 
-def phase3_digest(reqs, rep) -> str:
+def phase3_digest(reqs, rep, full: bool = False) -> str:
     """A digest of a serving run's greedy tokens and its integer counters
     (bytes, pages, steps: everything but times and rates), equal for two
-    runs that generated and moved the same."""
+    runs that generated and moved the same.  By default over the counters
+    that reports had before shared-prefix pages came (``NEW_REPORT_KEYS``
+    left out), so that it compares with older trees; ``full`` takes every
+    integer counter."""
     import hashlib
 
     counters = {k: v for k, v in sorted(rep.items())
-                if isinstance(v, int) and not isinstance(v, bool)}
+                if isinstance(v, int) and not isinstance(v, bool)
+                and (full or k not in NEW_REPORT_KEYS)}
     text = json.dumps([[list(map(int, r.output)) for r in reqs], counters])
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
@@ -1572,6 +1598,391 @@ def memory_tier_round_trip(torch, cache, n_layers: int = 4, min_pages: int = 512
     return {"decode_launches": get_launches["exp_delta_decode"],
             "encode_launches": put_launches["exp_delta_encode"], "pages": pages,
             "sequences": n, "gets": 5 * n, "get_values": get_values}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3p: shared-prefix pages and compressed weight streaming
+# ---------------------------------------------------------------------------
+
+
+def prefix_trace(n: int = PREFIX_REQUESTS, max_ctx: int = S, classes=PREFIX_CLASSES) -> list:
+    """Phase 3p's requests: ``make_trace`` over ``classes``, Poisson
+    arrivals at 0.5 a step, seed 0 (a new list of new requests each call)."""
+    from repro_torch.serving import make_trace
+    from repro_torch.serving.traces import RequestClass
+
+    return make_trace(n, kind="poisson", rate=0.5, seed=0, max_ctx=max_ctx,
+                      classes=[RequestClass(*c) for c in classes])
+
+
+def prefix_config(base, sharing: bool, weights: str):
+    """``base`` (phase 3's engine config) with sharing and weight streaming
+    set, telemetry on where the weights stream (the exporters read it), and
+    the lane engine unbounded in every run.  One full-width weight pass is
+    212 MB of bf16; phase 3's lane window (4,096 cycles, 4 MiB a step)
+    would take some 50 steps to stream one, and weight jobs outrank KV
+    writes, so page writes would wait behind them for the whole run.  With
+    every job of a step serviced in its own window, runs (b) and (c)
+    differ by the weight jobs alone."""
+    import dataclasses
+
+    from repro_torch.memctl import MemCtlConfig
+    from repro_torch.telemetry import TelemetryConfig
+
+    return dataclasses.replace(
+        base, prefix_sharing=sharing, weight_stream=weights,
+        engine=MemCtlConfig(step_cycles=None),
+        telemetry=TelemetryConfig() if weights == "compressed" else None)
+
+
+def launch_modules() -> tuple:
+    from repro_torch.kernels.bitplane import kernel as BK
+    from repro_torch.kernels.exp_delta import kernel as EK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.paged_attention import kernel as K
+
+    return K, BK, FK, EK
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches made inside are left out of every LAUNCHES count."""
+    mods = launch_modules()
+    saved = [dict(m.LAUNCHES) for m in mods]
+    try:
+        yield
+    finally:
+        for m, counts in zip(mods, saved):
+            m.LAUNCHES.update(counts)
+
+
+class PrefixWatch:
+    """Wraps one backend's prefix registration and adoption (instance
+    attributes, removed on exit) to count the pack and unpack launches of
+    each call, and checks the first adoption bit for bit: the slot's rows
+    of every layer, read back through ``slot_kv_bits`` right after it, must
+    equal the donor snapshot's (the read is left out of the counts)."""
+
+    def __init__(self, torch, backend):
+        self.torch, self.backend = torch, backend
+        self.registrations: list = []  # (snapshots taken, packs, unpacks)
+        self.adoptions: list = []      # (rid, tokens, packs, unpacks)
+        self.exact = None              # (rid, tokens) of the adoption read back
+
+    def __enter__(self):
+        b = self.backend
+        self._register, self._adopt = b._register_prefix, b._adopt_prefix_rows
+        b._register_prefix, b._adopt_prefix_rows = self.register, self.adopt
+        return self
+
+    def __exit__(self, *exc):
+        del self.backend._register_prefix, self.backend._adopt_prefix_rows
+
+    @staticmethod
+    def _counts() -> tuple:
+        BK = launch_modules()[1]
+        return BK.LAUNCHES["bitplane_pack"], BK.LAUNCHES["bitplane_unpack"]
+
+    def register(self, slot_id: int, end: int) -> None:
+        b = self.backend
+        read, reads = b.slot_kv_bits, []
+
+        def counted_read(*args, **kw):
+            reads.append(args)
+            return read(*args, **kw)
+
+        b.slot_kv_bits = counted_read
+        try:
+            (p0, u0) = self._counts()
+            self._register(slot_id, end)
+            (p1, u1) = self._counts()
+        finally:
+            del b.slot_kv_bits
+        self.registrations.append((len(reads), p1 - p0, u1 - u0))
+
+    def adopt(self, slot_id: int, entry, lo: int, m: int) -> None:
+        torch, b = self.torch, self.backend
+        (p0, u0) = self._counts()
+        self._adopt(slot_id, entry, lo, m)
+        (p1, u1) = self._counts()
+        rid = b._slots[slot_id].rid
+        self.adoptions.append((rid, m - lo, p1 - p0, u1 - u0))
+        if self.exact is not None:
+            return
+        with uncounted():
+            got = b.slot_kv_bits(slot_id, lo, m, layers=slice(None))
+        o = lo - entry.r0_token
+        if not (torch.equal(got[:, 0], entry.k[:, o:o + m - lo])
+                and torch.equal(got[:, 1], entry.v[:, o:o + m - lo])):
+            raise AssertionError(f"request {rid}: the adopted rows [{lo}, {m}) of slot "
+                                 f"{slot_id} differ from the donor snapshot's")
+        self.exact = (rid, m - lo)
+
+
+def serve_trace(torch, model, params, cfg, items, first=None, window=None) -> dict:
+    """One phase-3p run: the trace's requests submitted at their arrival
+    steps and served to the end of the backlog, launch counts reset just
+    before the first step and read just after the drain, under a
+    ``PrefixWatch`` (and, with ``first``, a ``DecodeWatch``: a check run).
+    With ``window`` (first step, steps) on the card, a profiler window over
+    those steps gives the device time a step (their host time is left out
+    of the host time a step).  The weight reads the controller charges are
+    counted by tensor name."""
+    from collections import deque
+
+    from repro_torch.serving import ContinuousScheduler
+
+    dev = params["embed"]["table"].device
+    t0 = time.perf_counter()
+    sched = ContinuousScheduler(model, params, cfg, device=dev)
+    build_s = time.perf_counter() - t0
+    ctl = sched.backend.controller
+    account, weight_reads = ctl.account_weight_read, collections.Counter()
+
+    def counted_account(name, planes=None):
+        weight_reads[name] += 1
+        return account(name, planes)
+
+    ctl.account_weight_read = counted_account
+    pending = deque(items)
+    reqs = [it.request for it in items]
+
+    def advance():
+        while pending and pending[0].arrival_step <= sched.step_count:
+            sched.submit(pending.popleft().request)
+        sched.step()
+
+    for m in launch_modules():
+        m.reset_launches()
+    window_ms, window_wall = None, 0.0
+    with contextlib.ExitStack() as stack:
+        prefix = stack.enter_context(PrefixWatch(torch, sched.backend))
+        watch = (stack.enter_context(DecodeWatch(torch, model, sched, first))
+                 if first is not None else None)
+        t0 = time.perf_counter()
+        while pending or sched.has_work():
+            if window and dev.type == "cuda" and sched.step_count == window[0]:
+                tw = time.perf_counter()
+                rows = device_rows(lambda: [advance() for _ in range(window[1])],
+                                   f"phase 3p: {window[1]} steps from step {window[0]}")
+                window_wall += time.perf_counter() - tw
+                window_ms = sum(e.self_device_time_total for e in rows) / window[1] / 1e3
+            else:
+                advance()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del ctl.account_weight_read
+    launches = {k: v for m in launch_modules() for k, v in m.LAUNCHES.items()}
+    if not all(r.done and not r.truncated and len(r.output) == r.max_new_tokens for r in reqs):
+        raise AssertionError("phase 3p: not every request completed")
+    steps = sched.step_count - (window[1] if window_ms is not None else 0)
+    return {"reqs": reqs, "rep": sched.report(), "launches": launches, "sched": sched,
+            "watch": watch, "prefix": prefix, "weight_reads": weight_reads,
+            "encodes": dict(sched.backend.page_encodes), "build_s": build_s, "wall": wall,
+            "host_ms_a_step": (wall - window_wall) / max(1, steps) * 1e3,
+            "device_ms_a_step": window_ms}
+
+
+def check_prefix_launches(name: str, run: dict, n_layers: int) -> None:
+    """A phase-3p run's launches on the card: flash 30 a prefill chunk the
+    run made, the fused kernel 30 a decode step, one encode a page
+    transform and no decode; a registration one unpack a snapshot it took
+    and no pack, an adoption one pack (every layer) and no unpack."""
+    got, rep = run["launches"], run["rep"]
+    expect = {"flash_attention": n_layers * rep["prefill_chunks"],
+              "paged_attention_fused": n_layers * rep["decode_steps"],
+              "paged_attention_rung": 0,
+              "exp_delta_encode": sum(run["encodes"].values()), "exp_delta_decode": 0}
+    expect_launches(f"phase 3p run {name}", got, expect)
+    regs = [r for r in run["prefix"].registrations if r[1:] != (0, r[0])]
+    adopts = [a for a in run["prefix"].adoptions if a[2:] != (1, 0)]
+    if regs or adopts:
+        raise AssertionError(f"phase 3p run {name}: registrations (snapshots, packs, unpacks) "
+                             f"{regs} or adoptions (request, tokens, packs, unpacks) {adopts} "
+                             f"launched other than one unpack a snapshot and one pack an "
+                             f"adoption")
+
+
+def check_prefix_launch_deltas(a: dict, b: dict, n_layers: int) -> dict:
+    """Sharing's launches, run (b) against run (a): once the launches that
+    follow the chunks, decode steps and page transforms each run made are
+    taken out (30 packs and 30 unpacks a prefill chunk, 30 packs a decode
+    step, a pack and an unpack a transform), (b) adds one pack an
+    adoption and one unpack a snapshot, and nothing else.  Returns the
+    deltas."""
+    def per(run, kind):
+        rep, enc = run["rep"], sum(run["encodes"].values())
+        steps = rep["decode_steps"] if kind == "bitplane_pack" else 0
+        return run["launches"][kind] - n_layers * (rep["prefill_chunks"] + steps) - enc
+
+    extra = {kind: per(b, kind) - per(a, kind) for kind in ("bitplane_pack", "bitplane_unpack")}
+    expect = {"bitplane_pack": len(b["prefix"].adoptions),
+              "bitplane_unpack": sum(r[0] for r in b["prefix"].registrations)}
+    if extra != expect:
+        raise AssertionError(f"phase 3p: sharing added launches {extra}, expected one pack an "
+                             f"adoption and one unpack a snapshot {expect}")
+    return extra
+
+
+def once_per_layer(weight_reads, w: dict) -> dict:
+    """The reference's once-per-layer identity over a run's weight reads:
+    every layer charged the same number of passes, and that number is
+    ``passes_fetched``.  Returns the passes per layer."""
+    per_layer = collections.Counter()
+    for name, n in weight_reads.items():
+        per_layer[name.split("/", 1)[0]] += n
+    tensors = len(weight_reads) // w["n_layers"]
+    passes = {layer: n // tensors for layer, n in per_layer.items()}
+    if len(passes) != w["n_layers"] or set(passes.values()) != {w["passes_fetched"]}:
+        raise AssertionError(f"weight passes per layer {passes}, passes_fetched "
+                             f"{w['passes_fetched']}")
+    if not w["passes_consumed"] <= w["passes_fetched"] <= w["passes_consumed"] + 1:
+        raise AssertionError(f"weights: {w['passes_consumed']} passes consumed, "
+                             f"{w['passes_fetched']} fetched")
+    return passes
+
+
+def check_prefix_runs(a: dict, b: dict, c: dict) -> dict:
+    """Phase 3p's checks across its runs (a: sharing off, b: on, c: on
+    with the weights streamed compressed): sharing happened and its ledger
+    holds; the matched tokens were skipped, not recomputed; adoption was
+    exact; streaming the weights moved no token and no KV byte; the
+    weights were charged once a layer a pass; the exporters' outputs are
+    valid.  Returns what the phase prints."""
+    import tempfile
+
+    from repro_torch.serving.kv_cache import is_prefix_seq
+    from repro_torch.telemetry import prometheus_snapshot, validate_trace, write_perfetto_trace
+
+    px = b["rep"]["prefix"]
+    if not (px["requests_matched"] > 0 and px["prefill_chunks_skipped"] > 0
+            and px["bytes_deduplicated"] > 0):
+        raise AssertionError(f"phase 3p: no sharing happened: {px}")
+    store = b["sched"].backend.store
+    shared = [kt for kt in store._lru if is_prefix_seq(kt[0])]
+    if px["resident_shared_bytes"] != sum(store._lru[kt] for kt in shared) \
+            or px["resident_shared_pages"] != len(shared):
+        raise AssertionError(f"phase 3p: resident shared {px['resident_shared_pages']} pages, "
+                             f"{px['resident_shared_bytes']} B; the store holds {len(shared)} "
+                             f"pages, {sum(store._lru[kt] for kt in shared)} B")
+    skipped = a["rep"]["prefill_tokens"] - b["rep"]["prefill_tokens"]
+    if skipped != px["tokens_matched"]:
+        raise AssertionError(f"phase 3p: (a) prefilled {skipped} tokens more than (b), "
+                             f"which matched {px['tokens_matched']}")
+    watch = b["prefix"]
+    if watch.exact is None or len(watch.adoptions) != px["requests_matched"]:
+        raise AssertionError(f"phase 3p: {len(watch.adoptions)} adoptions, "
+                             f"{px['requests_matched']} requests matched")
+    snapshots = sum(r[0] for r in watch.registrations)
+    if not snapshots >= px["index_entries"] > 0 \
+            or sum(r[0] for r in a["prefix"].registrations) or a["prefix"].adoptions:
+        raise AssertionError(f"phase 3p: {snapshots} snapshots for {px['index_entries']} "
+                             f"index entries; sharing off registered or adopted")
+    if [r.output for r in c["reqs"]] != [r.output for r in b["reqs"]]:
+        raise AssertionError("phase 3p: streaming the weights changed greedy tokens")
+    for key in ("kv_fetch_physical", "device_bytes_read", "kv_stored_bytes"):
+        if c["rep"][key] != b["rep"][key]:
+            raise AssertionError(f"phase 3p: {key} {c['rep'][key]} with the weights "
+                                 f"streamed, {b['rep'][key]} resident")
+    if c["rep"]["prefix"] != px:
+        raise AssertionError("phase 3p: streaming the weights changed the prefix report")
+    w = c["rep"]["weights"]
+    passes = once_per_layer(c["weight_reads"], w)
+    wstore = c["sched"].backend.streamers[0].store
+    if w["read_logical_bytes"] != w["passes_fetched"] * wstore.valid_logical_bytes:
+        raise AssertionError(f"weights: fetched {w['read_logical_bytes']} logical bytes, "
+                             f"{w['passes_fetched']} passes of {wstore.valid_logical_bytes}")
+    if b["rep"]["weights"] != {"mode": "resident"}:
+        raise AssertionError(f"resident weights streamed: {b['rep']['weights']}")
+    tel = c["sched"].telemetry
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.json")
+        trace = write_perfetto_trace(tel, path)
+        summary = validate_trace(path)
+        trace_bytes = Path(path).stat().st_size
+    weight_events = sum(e.get("cat") == "weights" for e in trace["traceEvents"])
+    if weight_events != tel.counts["weight_fetches"] or weight_events <= 0:
+        raise AssertionError(f"the trace holds {weight_events} weight events, telemetry "
+                             f"counted {tel.counts['weight_fetches']} fetches")
+    prom = prometheus_snapshot(c["rep"])
+    return {"tokens_skipped": skipped, "snapshots": snapshots,
+            "adoptions": len(watch.adoptions), "exact": watch.exact,
+            "passes_per_layer": sorted(set(passes.values())), "trace": summary,
+            "trace_bytes": trace_bytes, "weight_events": weight_events,
+            "prometheus_lines": len(prom.splitlines()), "prometheus_chars": len(prom)}
+
+
+def run_prefix_phase(torch, model, params) -> dict:
+    """Phase 3p: phase 3's model, ladder and engine config serving
+    ``prefix_trace()`` three ways: (a) sharing off, (b) sharing on, (c)
+    sharing on with the weights streamed compressed.  Checks each run's
+    launches and the runs against each other (``check_prefix_runs``); where
+    (a) and (b) part, check runs repeat both under a ``DecodeWatch`` and
+    each run's row at every first divergence is held to the plain
+    attention on its own cache (``check_fused_against_rung``)."""
+    base = engine_config("fused")
+    n_layers = model.cfg.n_layers
+    runs = {}
+    for name, sharing, weights in (("a", False, "resident"), ("b", True, "resident"),
+                                   ("c", True, "compressed")):
+        run = serve_trace(torch, model, params, prefix_config(base, sharing, weights),
+                          prefix_trace(), window=PREFIX_WINDOW)
+        check_prefix_launches(name, run, n_layers)
+        rep = run["rep"]
+        log(f"phase 3p [{name}: sharing {'on' if sharing else 'off'}, weights {weights}]: "
+            f"{len(run['reqs'])} requests, {rep['decode_steps']} decode steps, "
+            f"{rep['prefill_chunks']} prefill chunks ({rep['prefill_chunks_skipped']} skipped), "
+            f"{rep['prefill_tokens']} prefill tokens; launches {run['launches']}; page "
+            f"transforms {run['encodes']}; registrations (snapshots, packs, unpacks) "
+            f"{collections.Counter(run['prefix'].registrations)}, adoptions (packs, unpacks) "
+            f"{collections.Counter(a[2:] for a in run['prefix'].adoptions)}; scheduler built "
+            f"in {run['build_s']:.2f} s; run wall {run['wall']:.2f} s, host "
+            f"{run['host_ms_a_step']:.2f} ms a step, device "
+            + (f"{run['device_ms_a_step']:.3f} ms" if run["device_ms_a_step"] else "not measured")
+            + f" a step ({PREFIX_WINDOW[1]}-step profiler window from step "
+            f"{PREFIX_WINDOW[0]}); decode {rep['decode_tok_per_s']:.1f} tok/s; digest "
+            f"{phase3_digest(run['reqs'], rep, True)}")
+        runs[name] = run
+    a, b, c = runs["a"], runs["b"], runs["c"]
+    out = check_prefix_runs(a, b, c)
+    deltas = check_prefix_launch_deltas(a, b, n_layers)
+    log(f"phase 3p: prefix report (b) {b['rep']['prefix']}")
+    log(f"phase 3p: (a) prefilled {out['tokens_skipped']} tokens more than (b) = (b)'s "
+        f"tokens_matched; prefill chunks (a) {a['rep']['prefill_chunks']}, (b) "
+        f"{b['rep']['prefill_chunks']}, chunk_schedule of the matched prefixes "
+        f"{b['rep']['prefill_chunks_skipped']}; {out['snapshots']} snapshots, "
+        f"{out['adoptions']} adoptions, which add {deltas} launches to (b) beyond its "
+        f"chunks, decode steps and page transforms; the first adoption (request, tokens) "
+        f"{out['exact']} equals the donor snapshot bit for bit")
+    w = c["rep"]["weights"]
+    log(f"phase 3p: weights streamed (c): {w}; scheduler with attach_weights built in "
+        f"{c['build_s']:.2f} s; passes per layer {out['passes_per_layer']}; (c)'s tokens, "
+        f"kv_fetch_physical {c['rep']['kv_fetch_physical']} and device_bytes_read "
+        f"{c['rep']['device_bytes_read']} equal (b)'s")
+    log(f"phase 3p: Perfetto trace of (c): {out['trace']}, {out['trace_bytes']} B, "
+        f"{out['weight_events']} weight events = telemetry's weight_fetches; Prometheus "
+        f"snapshot {out['prometheus_lines']} lines, {out['prometheus_chars']} characters")
+    first = first_divergences(a["reqs"], b["reqs"])
+    same = sum(x == y for ra, rb in zip(a["reqs"], b["reqs"])
+               for x, y in zip(ra.output, rb.output))
+    total = sum(len(r.output) for r in a["reqs"])
+    log(f"phase 3p: (a) and (b) agree on {same}/{total} greedy tokens; "
+        f"{len(first)} requests part")
+    if first:
+        checks = {}
+        for name, sharing in (("a", False), ("b", True)):
+            run = serve_trace(torch, model, params,
+                              prefix_config(base, sharing, "resident"), prefix_trace(),
+                              first=first)
+            check_repeat(f"phase 3p run {name}", (runs[name]["reqs"], runs[name]["rep"]),
+                         (run["reqs"], run["rep"]))
+            checks[name] = run["watch"]
+        check_fused_against_rung(torch, a["reqs"], b["reqs"], first, checks["a"], checks["b"],
+                                 names=("off", "on"), phase="phase 3p")
+        del checks
+    return {name: {"launches": run["launches"], "decode_steps": run["rep"]["decode_steps"]}
+            for name, run in runs.items()}
 
 
 def run_quickstart(torch) -> dict:
@@ -3054,7 +3465,10 @@ def main() -> int:
     log(f"phase 3: fused and rung runs agree on {same}/{total} greedy tokens "
         f"({same / total:.3f})")
     log(f"phase 3 digest of greedy tokens and counters: fused "
-        f"{phase3_digest(fused_reqs, fused_rep)}, rung {phase3_digest(rung_reqs, rung_rep)}")
+        f"{phase3_digest(fused_reqs, fused_rep)}, rung {phase3_digest(rung_reqs, rung_rep)} "
+        f"(the counters reports had before shared-prefix pages); of the full report: fused "
+        f"{phase3_digest(fused_reqs, fused_rep, True)}, rung "
+        f"{phase3_digest(rung_reqs, rung_rep, True)}")
     first = first_divergences(fused_reqs, rung_reqs)
     checks = {}
     for kernel, timed in (("fused", (fused_reqs, fused_rep)), ("rung", (rung_reqs, rung_rep))):
@@ -3074,6 +3488,8 @@ def main() -> int:
     mark("3")
     round_trip = memory_tier_round_trip(torch, cache)
     mark("3c")
+    prefix_runs = run_prefix_phase(torch, model, params)
+    mark("3p")
     qs_launches = run_quickstart(torch)
     mark("4")
     del model, params
@@ -3095,6 +3511,9 @@ def main() -> int:
     kernels += time_exp_delta_kernels(torch, exp_delta_span, exp_delta_view, errs,
                                       fused_launches, per_step, round_trip, spans)
     for k in kernels:
+        # the kernel's launches over phase 3p's three timed runs
+        k["launches_phase_3p"] = sum(run["launches"].get(k["name"], 0)
+                                     for run in prefix_runs.values())
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err"):
             if key == "library_ms" and k[key] is None and k.get("library") == "none":
                 continue  # no single PyTorch call computes this function

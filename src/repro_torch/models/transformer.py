@@ -68,6 +68,36 @@ def head_weight(params: dict) -> torch.Tensor:
     return params.get("lm_head", {"w": params["embed"]["table"]})["w"]
 
 
+def split_layer_params(params: dict) -> list:
+    """Per-layer weight handles: views into the stacked ``params["layers"]``
+    tree, one tree per layer (no second copy).  The weight store ingests
+    these; the model keeps running the stacked form."""
+    layers = params["layers"]
+    n = next(iter(named_layer_tensors(layers)))[1].shape[0]
+    return [layer_slice(layers, i) for i in range(n)]
+
+
+def join_layer_params(handles: list) -> dict:
+    """Inverse of :func:`split_layer_params`: the handles stacked back into
+    a ``params["layers"]`` tree."""
+    return stack_layers(handles)
+
+
+def named_layer_tensors(handle: dict, prefix: str = "") -> list:
+    """One layer handle flattened to ``(path, tensor)`` pairs in the
+    reference's order (keys sorted at every level, as JAX flattens a dict):
+    the stable tensor names ("attn/wq", "mlp/w_in", ...) the weight store
+    keys on."""
+    out = []
+    for key in sorted(handle):
+        value, name = handle[key], prefix + str(key)
+        if isinstance(value, dict):
+            out.extend(named_layer_tensors(value, name + "/"))
+        else:
+            out.append((name, value))
+    return out
+
+
 def block_apply(lp, x, cfg, *, pos, cache=None, cache_len=None, kv_planes=None,
                 keeps=None, decode_kernel="fused"):
     """One pre-norm transformer block {ln1, attn, ln2, mlp} over x (B, S, d)

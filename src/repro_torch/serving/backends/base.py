@@ -26,9 +26,20 @@ stored page is transformed on the device (cluster, exponent delta,
 bit-plane pack: ``compressed_store.encode_kv``, one call per span); only
 its planes and bases cross to the host, where the codec runs.
 
+Shared-prefix pages (``EngineConfig.prefix_sharing``): full prompt pages
+are keyed by their token chain's hash, a finished prefill registers a
+snapshot of its prompt rows (every layer, one unpack of the device cache,
+kept on the device as raw bf16 bits), and a later prompt with the same
+page-aligned prefix binds those pages by refcount and adopts the rows into
+its slot (one pack of the snapshot for a bit-plane cache, a device copy for
+a dense one) instead of prefilling them.  Compressed weight streaming
+(``weight_stream='compressed'``): :meth:`KVBackend.attach_weights` stores
+the layer weights block-compressed behind the controller and every step
+that computes streams one weight pass through the lane engine; compute
+keeps the resident weights, as in the reference.
+
 Not in this slice (each raises where it is asked for): the ring and sharded
-backends, shared-prefix pages, compressed weight streaming and staged
-decode caches.
+backends and staged decode caches.
 """
 
 from __future__ import annotations
@@ -48,24 +59,31 @@ from repro_torch.core.quantization import (
     page_minmax,
     quest_scores,
 )
-from repro_torch.kernels.bitplane.ops import unpack_kv_pair
+from repro_torch.kernels.bitplane.ops import pack_kv_into, unpack_kv_pair
 from repro_torch.kernels.paged_attention.ops import unpack_kv
 from repro_torch.memctl import CompressionEngineRuntime, Job, JobClass
-from repro_torch.models.transformer import bitplane_cache_from_dense
+from repro_torch.models.transformer import bitplane_cache_from_dense, split_layer_params
 from repro_torch.serving.kv_cache import (
     PAGE_TOKENS,
     CompressedKVStore,
     PageEvictedError,
     PageKey,
+    PrefixEntry,
+    PrefixIndex,
+    page_chain_hashes,
     page_valid,
+    prefix_seq_id,
 )
 from repro_torch.telemetry.collector import NULL_COLLECTOR
+from repro_torch.weights import CompressedWeightStore, WeightStreamer
 
 #: stat keys the backend mutates on the (shared) scheduler stats dict
 BACKEND_STATS = (
     "kv_fetch_misses", "kv_fetch_deferrals", "kv_reactivations",
     "engine_jobs_cancelled", "kv_peak_stored_bytes", "kv_peak_logical_bytes",
     "device_bytes_read",
+    "prefix_requests_matched", "prefix_tokens_matched",
+    "prefix_pages_matched", "prefix_bytes_deduped",
 )
 
 
@@ -84,6 +102,20 @@ class SlotState:
     #: last plane-map row pushed to the device cache (bit-plane layout) —
     #: lets per-token re-syncs skip the device write when nothing changed
     device_row: Optional[np.ndarray] = None
+    # --- shared-prefix state (EngineConfig.prefix_sharing; empty = cold) ---
+    #: chain hash per FULL prompt page: page p < prompt_pages is keyed
+    #: ``px:<hash[p]>`` instead of the rid, so equal prefixes share store
+    #: pages; tail and decode pages stay rid-keyed
+    prefix_hashes: List[str] = dataclasses.field(default_factory=list)
+    #: raw prompt ids the hashes digest (a registration keeps them so that
+    #: a match verifies token equality, not just hash equality)
+    prefix_tokens: Optional[np.ndarray] = None
+    #: number of FULL prompt pages (== len(prefix_hashes))
+    prompt_pages: int = 0
+    #: pages [bound_from_page, shared_pages) were adopted through a prefix
+    #: match and hold a store refcount each, released at retire
+    shared_pages: int = 0
+    bound_from_page: int = 0
 
 
 class MemTier:
@@ -125,7 +157,7 @@ class MemTier:
 
 def make_fetch_job(store: CompressedKVStore, stats: Dict[str, float],
                    key: PageKey, seq_key, device_kv: str = "dense",
-                   telemetry=None) -> Job:
+                   telemetry=None, rid=None, keep_fn=None) -> Job:
     """Decode-critical fetch with SERVICE-TIME sizing.
 
     The plane count is resolved exactly once — by ``size_fn`` when the
@@ -137,15 +169,23 @@ def make_fetch_job(store: CompressedKVStore, stats: Dict[str, float],
     The job also accumulates ``device_bytes_read``: a bit-plane device cache
     reads exactly the planes the ladder prescribes; a dense cache reads the
     full-precision page no matter what the ladder charged.
+
+    ``rid`` names the request a live telemetry collector attributes the
+    fetch to (default ``key.seq_id``, which a shared page's content key
+    does not carry).  ``keep_fn`` resolves the plane count from the
+    FETCHING slot's ladder assignment at service time (a shared page is
+    ranked by every holder against its own query); None reads the store's
+    ladder hint.
     """
     plan: dict = {}
     telemetry = telemetry if telemetry is not None else NULL_COLLECTOR
+    rid = key.seq_id if rid is None else rid
 
     def size() -> int:
         if not store.contains(key):
             store.note_miss()
             return 0  # evicted since submit; fn counts the scheduler miss
-        nbytes, keep = store.fetch_plan(key)
+        nbytes, keep = store.fetch_plan(key, "ladder" if keep_fn is None else keep_fn())
         plan["keep"] = keep
         plan["device"] = (nbytes if device_kv == "bitplane"
                           else store.page_logical_bytes(key))
@@ -169,7 +209,7 @@ def make_fetch_job(store: CompressedKVStore, stats: Dict[str, float],
         if live:
             delta = (store.controller.stats.kind_device_bytes("kv_read")
                      - before)
-            telemetry.on_fetch(key.seq_id, plan["device"], delta)
+            telemetry.on_fetch(rid, plan["device"], delta)
 
     return Job(JobClass.DECODE_FETCH, 0, fn=fn, key=key.astuple(),
                seq_id=seq_key, size_fn=size)
@@ -201,6 +241,17 @@ class KVBackend(abc.ABC):
         #: device page transforms (one ``encode_kv`` each): page-writing
         #: spans and re-activated pages
         self.page_encodes = {"write_spans": 0, "reactivations": 0}
+        # weight streaming: one streamer per tier, built by attach_weights;
+        # empty under weight_stream='resident'
+        if cfg.weight_stream not in ("resident", "compressed"):
+            raise ValueError(
+                f"weight_stream must be 'resident' or 'compressed', got "
+                f"{cfg.weight_stream!r}")
+        self.streamers: list = []
+        self._weight_pass_pending = False
+        # shared-prefix index: None = sharing off, every page rid-keyed
+        self.prefix: Optional[PrefixIndex] = (
+            PrefixIndex(cfg.prefix_index_entries) if cfg.prefix_sharing else None)
 
     # ------------------------------------------------------------ validation
     @classmethod
@@ -238,6 +289,33 @@ class KVBackend(abc.ABC):
                 f"bit-plane packing needs head_dim % 8 == 0, got "
                 f"{mcfg.head_dim}"
             )
+
+    # -------------------------------------------------------- weight streaming
+    def attach_weights(self, params) -> None:
+        """Ingest the model's per-layer weight handles into each tier's
+        block-compressed weight store and build the streamers
+        (``weight_stream='compressed'``; a no-op under 'resident').  Each
+        tensor's raw bits are copied to the host once and compressed there
+        by the controller's codec."""
+        if self.cfg.weight_stream != "compressed":
+            return
+        handles = split_layer_params(params)
+        n = len(self.tiers)
+        self.streamers = []
+        for tier in self.tiers:
+            store = CompressedWeightStore.from_handles(
+                handles, tier.controller, part=(tier.index, n))
+            self.streamers.append(WeightStreamer(
+                store, tier.engine, telemetry=self.telemetry,
+                prefetch_depth=self.cfg.weight_prefetch_depth,
+                tier=tier.index))
+
+    def _note_compute(self) -> None:
+        """A prefill chunk or decode token ran this step: the step's engine
+        window carries one weight pass (all compute in a step shares the
+        streamed layer buffers — weight bytes are charged exactly once per
+        layer per step)."""
+        self._weight_pass_pending = True
 
     # ---------------------------------------------------------- device cache
     @property
@@ -285,23 +363,24 @@ class KVBackend(abc.ABC):
         return n_layers if cap is None else min(cap, n_layers)
 
     def slot_kv_bits(self, slot_id: int, t0: int, t1: int,
-                     layers: slice = slice(None)) -> torch.Tensor:
-        """This slot's KV rows [t0, t1) of the stored layers (or the
-        ``layers`` slice of them) on the device, as raw bf16 bits:
-        (layers, 2 streams k/v, tokens, channels) ``int16``.  The bit-plane
-        layout unpacks both streams at full precision in one launch,
-        reading the cache's planes in place — packing is a bf16 bitcast, so
-        the bits equal the dense layout's."""
-        ls = self.stored_layers()
+                     layers: Optional[slice] = None) -> torch.Tensor:
+        """This slot's KV rows [t0, t1) of the stored layers (or of the
+        model's ``layers`` slice) on the device, as raw bf16 bits: (layers,
+        2 streams k/v, tokens, channels) ``int16``.  The bit-plane layout
+        unpacks both streams at full precision in one launch, reading the
+        cache's planes in place — packing is a bf16 bitcast, so the bits
+        equal the dense layout's."""
+        if layers is None:
+            layers = slice(0, self.stored_layers())
         t = t1 - t0
         if self.device_kv == "bitplane":
             # (L, bits, B, T, Hkv, hd8) -> (bits, layers, t, Hkv, hd8) views
             # of each stream, unpacked together -> (2, layers, t, Hkv, hd)
-            kp, vp = (self._cache[name][:ls][layers, :, slot_id, t0:t1].movedim(1, 0)
+            kp, vp = (self._cache[name][layers, :, slot_id, t0:t1].movedim(1, 0)
                       for name in ("k_planes", "v_planes"))
             dense = unpack_kv_pair(kp, vp, kp.shape[0], kp.shape[0])
         else:
-            dense = torch.stack([self._cache[name][:ls][layers, slot_id, t0:t1]
+            dense = torch.stack([self._cache[name][layers, slot_id, t0:t1]
                                  for name in ("k", "v")])
         return dense.reshape(2, -1, t, dense.shape[-2] * dense.shape[-1]) \
             .transpose(0, 1).view(torch.int16)
@@ -330,24 +409,177 @@ class KVBackend(abc.ABC):
             self._cache["planes"][slot_id] = self.tiers[0].store.spec.bits
 
     def retire(self, slot_id: int, rid: int) -> int:
-        """Cancel the request's queued engine jobs and drop its pages.
-        Eviction write-backs carry ``seq_id=None`` and survive.  Returns the
-        number of cancelled jobs (also accumulated on the stats dict)."""
+        """Release the slot's shared-page bindings, cancel the request's
+        queued engine jobs and drop its pages.  Eviction write-backs carry
+        ``seq_id=None`` and survive.  Returns the number of cancelled jobs
+        (also accumulated on the stats dict)."""
+        st = self._slots.get(slot_id)
+        if st is not None:
+            self._release_prefix(st)
         cancelled = 0
         for tier in self.tiers:
             cancelled += tier.engine.cancel_seq(rid)
+            # shared (px:) pages are untouched: drop_sequence matches the
+            # integer rid only, and the prefix cache outlives its writers
             tier.store.drop_sequence(rid)
         self.stats["engine_jobs_cancelled"] += cancelled
         self._slots.pop(slot_id, None)
         self._reset_device_planes(slot_id)
         return cancelled
 
+    # --------------------------------------------------------- prefix sharing
+    def _slot_key(self, st: SlotState, layer: int, page_idx: int,
+                  stream: str) -> PageKey:
+        """Store key for one of this slot's pages: content-addressed while
+        the page is a hashed FULL prompt page (sharing on), rid-keyed
+        otherwise (sharing off, ragged prompt tails, decode appends)."""
+        if st.prefix_hashes and page_idx < st.prompt_pages:
+            return PageKey(prefix_seq_id(st.prefix_hashes[page_idx]),
+                           layer, page_idx, stream)
+        return PageKey(st.rid, layer, page_idx, stream)
+
+    def _prefix_adopt_lo(self, m: int) -> int:
+        """First device row a slot adopting an ``m``-token prefix must
+        rebuild: 0 on the paged tier, whose slot holds every row."""
+        return 0
+
+    def _prefix_register_ok(self, st: SlotState, end: int) -> bool:
+        """Whether a finished prefill can be indexed for sharing: always on
+        the paged tier, whose slot still holds the whole prompt."""
+        return True
+
+    def match_prefix(self, slot_id: int, prompt) -> int:
+        """Longest indexed page-aligned shared prefix this slot can adopt:
+        binds the matched pages by refcount, writes the donor snapshot's
+        rows into the slot, and returns the matched token count (0 =
+        cold).  Called once per slot, at its first prefill tick; it is also
+        where the slot's page hashes are computed, so a cold slot writes
+        its full prompt pages content-addressed (becoming a donor).
+
+        The match stops one page short of the prompt's end: at least one
+        token prefills, and the final chunk's logits give sampling draw 0,
+        so a matched request keeps the stream a cold prefill would use."""
+        if self.prefix is None or not self.cfg.store_kv_compressed:
+            return 0
+        st = self._slots[slot_id]
+        arr = np.ascontiguousarray(np.asarray(prompt, np.int32))
+        hashes = page_chain_hashes(arr)
+        st.prefix_hashes = hashes
+        st.prefix_tokens = arr
+        st.prompt_pages = len(hashes)
+        if not hashes:
+            return 0
+        cap = (len(arr) - 1) // PAGE_TOKENS
+        m_pages, entry = self.prefix.match(arr, hashes, max_pages=cap)
+        while m_pages > 0:
+            m = m_pages * PAGE_TOKENS
+            lo = self._prefix_adopt_lo(m)
+            if lo < entry.r0_token:
+                return 0  # the donor snapshot does not reach back to lo
+            bind_from = -(-lo // PAGE_TOKENS)
+            missing = self._first_missing_prefix_page(hashes, bind_from, m_pages)
+            if missing is None:
+                break
+            if missing <= bind_from:
+                return 0  # nothing resident to bind
+            m_pages = missing  # truncate to the resident prefix and retry
+        else:
+            return 0
+        self._adopt_prefix_rows(slot_id, entry, lo, m)
+        st.stored_tokens = m
+        st.bound_from_page = bind_from
+        st.shared_pages = m_pages
+        deduped = 0
+        for p in range(bind_from, m_pages):
+            for li in range(self.stored_layers()):
+                for stream in ("k", "v"):
+                    key = self._slot_key(st, li, p, stream)
+                    for tier in self.tiers:
+                        tier.store.retain_page(key)
+                        deduped += tier.store.page_stored_bytes(key)
+        self.stats["prefix_requests_matched"] += 1
+        self.stats["prefix_tokens_matched"] += m
+        self.stats["prefix_pages_matched"] += m_pages - bind_from
+        self.stats["prefix_bytes_deduped"] += deduped
+        if self.telemetry.enabled:
+            self.telemetry.on_prefill_chunk(st.rid, 0, m, False)
+        return m
+
+    def _first_missing_prefix_page(self, hashes: List[str], p0: int,
+                                   p1: int) -> Optional[int]:
+        """First page in [p0, p1) not resident on every tier (a queued but
+        unserviced donor write counts as missing: there is no compressed
+        copy to bind yet), or None when all are resident."""
+        for p in range(p0, p1):
+            for li in range(self.stored_layers()):
+                for stream in ("k", "v"):
+                    key = PageKey(prefix_seq_id(hashes[p]), li, p, stream)
+                    if not all(tier.store.contains(key) for tier in self.tiers):
+                        return p
+        return None
+
+    def _adopt_prefix_rows(self, slot_id: int, entry: PrefixEntry,
+                           lo: int, m: int) -> None:
+        """Write the donor snapshot's rows [lo, m) of every layer into this
+        slot, on the device: one pack of the snapshot into the bit-plane
+        cache (all layers in one launch), or a copy into the dense cache.
+        Charged to neither the lane engine nor the controller: no prefill
+        or compression runs for adopted rows.  Packing is a bf16 bitcast,
+        so the adopted planes equal the donor's."""
+        cache = self.ensure_cache()
+        t, o = m - lo, lo - entry.r0_token
+        hkv, hd = self.mcfg.n_kv_heads, self.mcfg.head_dim
+        k, v = (x[:, o:o + t].view(torch.bfloat16).reshape(x.shape[0], t, hkv, hd)
+                for x in (entry.k, entry.v))
+        if self.device_kv == "bitplane":
+            # (L, bits, B, S, Hkv, hd8) -> the slot's (bits, L, S, Hkv, hd8)
+            kp, vp = (cache[name][:, :, slot_id].movedim(1, 0)
+                      for name in ("k_planes", "v_planes"))
+            pack_kv_into(k, v, kp, vp, lo)
+            return
+        cache["k"][:, slot_id, lo:m] = k
+        cache["v"][:, slot_id, lo:m] = v
+
+    def _register_prefix(self, slot_id: int, end: int) -> None:
+        """Index a finished prefill's full prompt pages for future sharing,
+        with a snapshot of their rows over every model layer (adoption
+        rebuilds the whole device column, not just the stored layers):
+        one ``slot_kv_bits`` on the device, kept there.  Skipped when every
+        page hash is already indexed."""
+        if self.prefix is None:
+            return
+        st = self._slots[slot_id]
+        n_pages = st.prompt_pages
+        if (n_pages == 0 or st.prefix_tokens is None
+                or not self._prefix_register_ok(st, end)):
+            return
+        if all(self.prefix.has_page(h) for h in st.prefix_hashes):
+            return
+        t1 = n_pages * PAGE_TOKENS
+        bits = self.slot_kv_bits(slot_id, 0, t1, layers=slice(None))
+        self.prefix.register(PrefixEntry(
+            tokens=st.prefix_tokens[:t1].copy(), hashes=list(st.prefix_hashes),
+            r0_token=0, k=bits[:, 0], v=bits[:, 1],
+        ))
+
+    def _release_prefix(self, st: SlotState) -> None:
+        """Drop this slot's remaining shared-page bindings."""
+        for p in range(st.bound_from_page, st.shared_pages):
+            for li in range(self.stored_layers()):
+                for stream in ("k", "v"):
+                    key = self._slot_key(st, li, p, stream)
+                    for tier in self.tiers:
+                        tier.store.release_page(key)
+        st.bound_from_page = st.shared_pages
+
     # ---------------------------------------------------------- page traffic
     def on_prefill_progress(self, slot_id: int, end: int, final: bool) -> None:
         """Prompt KV for tokens [0, end) is now on device: stream the newly
         completed pages to the tier (full pages as chunks land; on the
         final call also the ragged tail as an exact-length page), then
-        assign ladder planes once the prompt is complete."""
+        assign ladder planes and register the prompt's prefix once the
+        prompt is complete."""
+        self._note_compute()
         if not self.cfg.store_kv_compressed:
             return
         st = self._slots[slot_id]
@@ -359,11 +591,13 @@ class KVBackend(abc.ABC):
             st.stored_tokens = hi
         if final:
             self._assign_ladder_planes(slot_id, end)
+            self._register_prefix(slot_id, end)
 
     def on_decode_token(self, slot_id: int, ln: int) -> None:
         """One decode token landed at position ln-1: store the page if it
         just filled (and re-rank the ladder), then queue this step's
         decode-critical fetch traffic for the slot."""
+        self._note_compute()
         if not self.cfg.store_kv_compressed:
             return
         st = self._slots[slot_id]
@@ -387,7 +621,7 @@ class KVBackend(abc.ABC):
             for stream in ("k", "v"):
                 for j, v in enumerate(valid):
                     self._submit_page_write(
-                        st, PageKey(st.rid, li, first_page + j, stream), next(it), v
+                        st, self._slot_key(st, li, first_page + j, stream), next(it), v
                     )
 
     def _submit_page_write(self, st: SlotState, key: PageKey, page,
@@ -425,12 +659,17 @@ class KVBackend(abc.ABC):
         for li in range(self.stored_layers()):
             for stream in ("k", "v"):
                 for p in range(n_pages):
-                    key = PageKey(st.rid, li, p, stream)
+                    key = self._slot_key(st, li, p, stream)
+                    # a shared page is fetched at THIS holder's ladder
+                    # assignment (the store's hint is the last re-ranker's)
+                    keep_fn = (None if key.seq_id == st.rid
+                               else lambda p=p: st.page_planes.get(p))
                     kt = key.astuple()
                     if tier.store.contains(key):
                         tier.engine.submit(make_fetch_job(
                             tier.store, self.stats, key, st.rid,
                             device_kv=self.device_kv, telemetry=self.telemetry,
+                            rid=st.rid, keep_fn=keep_fn,
                         ))
                     elif (tier.engine.pending(kt, JobClass.KV_WRITE)
                           or tier.engine.pending(kt, JobClass.BACKGROUND)):
@@ -513,15 +752,28 @@ class KVBackend(abc.ABC):
             st.page_planes[p] = keep
             for li in range(self.stored_layers()):
                 for stream in ("k", "v"):
-                    tier.store.set_planes(PageKey(st.rid, li, p, stream), keep)
+                    tier.store.set_planes(self._slot_key(st, li, p, stream), keep)
         if self.telemetry.enabled:
             self.telemetry.on_ladder_rerank(st.rid, n_pages)
         self._push_device_planes(slot_id, st)
 
     # ---------------------------------------------------------------- engine
     def tick(self) -> None:
+        compute = self._weight_pass_pending
+        self._weight_pass_pending = False
+        if compute:
+            # weight jobs enter the SAME lane window the step's KV traffic
+            # contends for: the current pass, then the next pass's
+            # prefetch-depth layers (the double buffer)
+            for ws in self.streamers:
+                ws.begin_pass()
         for tier in self.tiers:
             tier.engine.tick()
+        if compute:
+            # a current-pass layer the window could not service is a stall,
+            # charged to modeled latency (engine_time_ns)
+            for ws in self.streamers:
+                ws.window_close()
 
     def backlog(self) -> int:
         """Queued engine jobs (eviction write-backs, deferred writes) — the
@@ -533,8 +785,11 @@ class KVBackend(abc.ABC):
 
     def engine_time_ns(self) -> float:
         """Modeled engine-clock time (the telemetry collector's second
-        clock domain)."""
-        return max(tier.engine.clock.elapsed_ns for tier in self.tiers)
+        clock domain): the serviced-work watermark plus the cumulative
+        weight-stream stall time (both monotone)."""
+        base = max(tier.engine.clock.elapsed_ns for tier in self.tiers)
+        stall = max((ws.counters["stall_ns"] for ws in self.streamers), default=0.0)
+        return base + stall
 
     # ------------------------------------------------------------- reporting
     def note_peaks(self) -> None:
@@ -587,7 +842,72 @@ class KVBackend(abc.ABC):
                 k: er["utilization"] * v / total_sb
                 for k, v in er["serviced_bytes"].items()
             }
+        # weight-side traffic (savings over exact block bytes, as Table III
+        # quotes them, and the streamer's stalls) and shared-prefix traffic
+        s["weights"] = self._weights_report()
+        s["prefix"] = self._prefix_report()
         return s
+
+    def _prefix_report(self) -> dict:
+        pr: dict = {"enabled": self.prefix is not None}
+        if self.prefix is None:
+            return pr
+        fps = [tier.store.footprint() for tier in self.tiers]
+        matched = self.stats.get("prefix_tokens_matched", 0)
+        prefilled = self.stats.get("prefill_tokens", 0)
+        pr.update({
+            "requests_matched": self.stats.get("prefix_requests_matched", 0),
+            "tokens_matched": matched,
+            "pages_matched": self.stats.get("prefix_pages_matched", 0),
+            "bytes_deduplicated": self.stats.get("prefix_bytes_deduped", 0),
+            "prefill_chunks_skipped": self.stats.get("prefill_chunks_skipped", 0),
+            # matched tokens never prefill: the share of prompt work the
+            # index absorbed
+            "hit_ratio": (matched / (matched + prefilled)
+                          if matched + prefilled else 0.0),
+            "index_entries": len(self.prefix),
+            "resident_shared_pages": sum(fp["shared_pages"] for fp in fps),
+            "resident_shared_bytes": sum(fp["shared_stored_bytes"] for fp in fps),
+            "bound_pages": sum(fp["bound_pages"] for fp in fps),
+            "shared_evictions": sum(fp["shared_evictions"] for fp in fps),
+        })
+        return pr
+
+    def _weights_report(self) -> dict:
+        w: dict = {"mode": self.cfg.weight_stream}
+        if not self.streamers:
+            return w
+        rl = rp = stored = logical = 0
+        for tier in self.tiers:
+            read_l, read_p = tier.controller.stats.kind_bytes("weight_read")
+            rl += read_l
+            rp += read_p
+            fp = tier.controller.footprint()
+            stored += fp["weights_stored"]
+            logical += fp["weights_logical"]
+        reps = [ws.report() for ws in self.streamers]
+        w.update({
+            "n_layers": reps[0]["n_layers"],
+            "prefetch_depth": reps[0]["prefetch_depth"],
+            "stored_bytes": stored,
+            "logical_bytes": logical,
+            # capacity: resident compressed footprint vs pad-free logical
+            "capacity_saving": 1 - stored / logical if logical else 0.0,
+            "read_logical_bytes": rl,
+            "read_physical_bytes": rp,
+            # bandwidth: what the bus moved for streamed reads vs what the
+            # compute consumed (the paper's weight-side headline)
+            "bandwidth_saving": 1 - rp / rl if rl else 0.0,
+            "fetch_jobs": sum(r["fetch_jobs"] for r in reps),
+            # every tier consumes the same step stream: per-tier values
+            "passes_consumed": max(r["passes_consumed"] for r in reps),
+            "passes_fetched": max(r["passes_fetched"] for r in reps),
+            "stall_steps": max(r["stall_steps"] for r in reps),
+            "stall_layers": sum(r["stall_layers"] for r in reps),
+            "stall_ns": max(r["stall_ns"] for r in reps),
+            "stall_fraction": max(r["stall_fraction"] for r in reps),
+        })
+        return w
 
     # ------------------------------------------------------------ accessors
     @property

@@ -14,13 +14,20 @@ reference's ``serving/scheduler.py``, bucketed prefill).
 * **Memory tier.**  Every page write, decode fetch, eviction
   re-activation, ladder assignment, retirement cleanup, engine tick and
   savings report goes through the :class:`~.backends.KVBackend`.
+* **Shared-prefix pages** (``prefix_sharing``).  At a slot's first
+  prefill tick the backend adopts the longest indexed page-aligned prefix
+  of its prompt; prefill starts at the divergence page, and the matched
+  chunks are skipped (never computed, stored or charged).
+* **Compressed weight streaming** (``weight_stream="compressed"``).  The
+  backend stores the layer weights block-compressed and streams one
+  weight pass through the lane engine per step that computes; compute
+  keeps the resident weights, so tokens do not move.
 * **Device.**  The model runs on one torch device, CUDA unless the caller
   passes ``device="cpu"``; without a GPU and without that argument the
   scheduler raises instead of moving to the CPU.
 
-Not in this slice: ``prefill_mode="padded"``, shared-prefix pages,
-compressed weight streaming and the ring/sharded backends — each raises
-where it is asked for.
+Not in this slice: ``prefill_mode="padded"`` and the ring/sharded
+backends — each raises where it is asked for.
 """
 
 from __future__ import annotations
@@ -98,12 +105,24 @@ class EngineConfig:
     admit_latency_ns_max: Optional[float] = None
     #: reject requests at submit while the backlog exceeds this (ns)
     shed_latency_ns_max: Optional[float] = None
-    #: shared-prefix pages: not ported yet, must stay False
+    #: shared-prefix KV pages: full prompt pages keyed by a rolling content
+    #: hash, so requests sharing a page-aligned prefix store its KV once
+    #: and adopt it instead of prefilling it; off = page keys, eviction
+    #: order and accounting as without it
     prefix_sharing: bool = False
+    #: LRU capacity of the prefix index (registered distinct prefixes, each
+    #: holding a device snapshot of its KV rows for adoption)
+    prefix_index_entries: int = 128
     #: serving telemetry collector (None = the no-op null collector)
     telemetry: Optional[TelemetryConfig] = None
-    #: weight-side streaming: only 'resident' is ported
+    #: weight-side streaming: 'resident' (no weight traffic on the lanes)
+    #: or 'compressed' (layer weights stored block-compressed behind the
+    #: controller, one decompress pass per computing step through the lane
+    #: budget KV fetches contend for, double-buffered one pass ahead)
     weight_stream: str = "resident"
+    #: layers of the NEXT weight pass prefetched during the current step's
+    #: lane window (None = the whole next pass, 0 = no overlap)
+    weight_prefetch_depth: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -115,6 +134,10 @@ class _Slot:
     draws: int = 0  # tokens sampled so far from this stream
     prefill_pos: int = 0  # prompt tokens already appended to the slot rows
     prefilling: bool = True  # still consuming prompt chunks (no decode yet)
+    #: the prefix-index lookup already ran for this slot (exactly once, at
+    #: its first prefill tick: after earlier slots of the same step had the
+    #: chance to register their prefixes)
+    prefix_checked: bool = False
 
 
 def prefill_buckets(max_ctx: int) -> List[int]:
@@ -136,6 +159,18 @@ def next_chunk(rem: int, buckets: List[int]) -> tuple:
     return bucket, min(bucket, rem)
 
 
+def chunk_schedule(prompt_len: int, buckets: List[int]) -> List[tuple]:
+    """Greedy largest-first decomposition of a prompt into (bucket, real)
+    chunks (:func:`next_chunk` applied until the prompt is consumed)."""
+    out = []
+    rem = int(prompt_len)
+    while rem > 0:
+        bucket, real = next_chunk(rem, buckets)
+        out.append((bucket, real))
+        rem -= real
+    return out
+
+
 def _not_ported(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it comes with the {slice_name} slice "
@@ -152,6 +187,11 @@ class ContinuousScheduler:
 
     def __init__(self, model, params, cfg: EngineConfig, device=None,
                  controller: MemoryController | None = None):
+        if cfg.prefix_sharing and cfg.prefill_mode == "padded":
+            raise ValueError(
+                "prefix_sharing requires prefill_mode='bucketed': padded "
+                "admission runs one monolithic prefill inside _admit, so "
+                "there is no chunk schedule to skip matched pages from")
         if cfg.prefill_mode != "bucketed":
             if cfg.prefill_mode == "padded":
                 raise _not_ported("prefill_mode='padded'", "'rest of serving'")
@@ -159,12 +199,6 @@ class ContinuousScheduler:
         if cfg.decode_kernel not in ("fused", "rung"):
             raise ValueError(
                 f"decode_kernel must be 'fused' or 'rung', got {cfg.decode_kernel!r}")
-        if cfg.prefix_sharing:
-            raise _not_ported("prefix_sharing", "'rest of serving'")
-        if cfg.weight_stream != "resident":
-            if cfg.weight_stream == "compressed":
-                raise _not_ported("weight_stream='compressed'", "'rest of serving'")
-            raise ValueError(f"weight_stream must be 'resident', got {cfg.weight_stream!r}")
         if cfg.max_ctx % PAGE_TOKENS != 0:
             # a ragged final bucket near the cache end would overrun it;
             # page-multiple max_ctx makes that unreachable
@@ -191,13 +225,16 @@ class ContinuousScheduler:
             "engine_jobs_cancelled": 0,
             "kv_peak_stored_bytes": 0, "kv_peak_logical_bytes": 0,
             "admits_deferred": 0, "backpressure_steps": 0,
-            "requests_shed": 0,
+            "requests_shed": 0, "prefill_chunks_skipped": 0,
             "prefill_s": 0.0, "decode_s": 0.0,
         }
         self.telemetry = make_collector(cfg.telemetry)
         self.backend = make_backend(model, cfg, self.device,
                                     controller=controller, stats=self.stats,
                                     telemetry=self.telemetry)
+        # weight streaming: the layer weights go into the backend's weight
+        # store (a no-op under 'resident'); compute keeps ``params``
+        self.backend.attach_weights(params)
         if self.telemetry.enabled:
             self.telemetry.bind_clocks(lambda: self.step_count,
                                        self.backend.engine_time_ns)
@@ -333,6 +370,17 @@ class ContinuousScheduler:
         for slot_id, slot in enumerate(self._slots):
             if slot is None or not slot.prefilling:
                 continue
+            if not slot.prefix_checked:
+                # shared-prefix adoption (0 when sharing is off or nothing
+                # matched): the matched pages are bound and on the device,
+                # so prefill starts at the divergence page
+                slot.prefix_checked = True
+                m = self.backend.match_prefix(slot_id, slot.prompt)
+                if m:
+                    slot.prefill_pos = m
+                    self._lens[slot_id] = m
+                    self.stats["prefill_chunks_skipped"] += len(
+                        chunk_schedule(m, self._buckets))
             budget = (max(1, self.cfg.prefill_chunks_per_step)
                       if decode_live else len(slot.prompt))
             while slot.prefilling and budget > 0:

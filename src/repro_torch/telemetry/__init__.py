@@ -1,6 +1,6 @@
-"""Serving telemetry collector (copy of the reference's
-``telemetry.collector``).  The Perfetto and Prometheus exporters are not
-ported yet: they come with the 'rest of serving' slice (ROADMAP queue 1)."""
+"""Serving telemetry: request-lifecycle spans, memctl lane timelines, and
+the Perfetto and Prometheus exporters (copies of the reference's
+``telemetry`` package)."""
 
 from repro_torch.telemetry.collector import (  # noqa: F401
     NULL_COLLECTOR,
@@ -12,3 +12,9 @@ from repro_torch.telemetry.collector import (  # noqa: F401
     make_collector,
     quantiles,
 )
+from repro_torch.telemetry.perfetto import (  # noqa: F401
+    build_trace_events,
+    validate_trace,
+    write_perfetto_trace,
+)
+from repro_torch.telemetry.prometheus import prometheus_snapshot  # noqa: F401

@@ -33,7 +33,9 @@ is guarded by ``if telemetry.enabled:`` and the default
 no events, no stamps, no clock reads, tokens and byte counters bit-identical
 to an un-instrumented run.
 
-The reference's Perfetto and Prometheus exporters are not ported yet.
+Exporters live next door: :mod:`repro_torch.telemetry.perfetto`
+(Chrome/Perfetto ``trace.json``) and :mod:`repro_torch.telemetry.prometheus`
+(text snapshot).
 """
 
 from __future__ import annotations

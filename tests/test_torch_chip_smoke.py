@@ -435,3 +435,130 @@ def test_encode_bytes_count_each_value_once():
     assert C.encode_bytes(span) == 2 * 2 * 786_432 + 256 * 192 == 3_194_880
     assert C.encode_bytes(torch.zeros((37, 192), dtype=torch.int16)) == \
         37 * 192 * 2 + 3 * 192 * (16 * 2 + 1)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3p on the CPU: shared-prefix pages and weight streaming
+# ---------------------------------------------------------------------------
+
+# phase 3p's classes cut to the smoke model's size: shared prefixes of 4
+# and 2 pages, one class with none
+SMALL_PREFIX_CLASSES = (("chat", 64, (4, 20), (4, 8), 0.6),
+                        ("agentic", 32, (4, 12), (6, 10), 0.2),
+                        ("longdoc", 0, (40, 70), (2, 4), 0.2))
+
+
+def _prefix_trace():
+    return C.prefix_trace(n=10, max_ctx=192, classes=SMALL_PREFIX_CLASSES)
+
+
+def _prefix_base():
+    return EngineConfig(max_batch=4, max_ctx=192, ladder=PrecisionLadder(C.LADDER),
+                        codec="lz4", device_kv="bitplane", decode_kernel="fused",
+                        backend="paged")
+
+
+@pytest.fixture(scope="module")
+def prefix_runs(small):
+    """Phase 3p's three runs at the smoke size, as ``run_prefix_phase``
+    makes them (no profiler window: the CPU has no device time)."""
+    model, params = small
+    return {name: C.serve_trace(torch, model, params,
+                                C.prefix_config(_prefix_base(), sharing, weights),
+                                _prefix_trace())
+            for name, sharing, weights in (("a", False, "resident"), ("b", True, "resident"),
+                                           ("c", True, "compressed"))}
+
+
+def test_prefix_phase_checks_pass_on_a_small_model(prefix_runs):
+    out = C.check_prefix_runs(prefix_runs["a"], prefix_runs["b"], prefix_runs["c"])
+    b = prefix_runs["b"]
+    assert out["adoptions"] == b["rep"]["prefix"]["requests_matched"] > 0
+    assert out["exact"] is not None and out["weight_events"] > 0
+    assert out["trace"]["events"] > 0 and out["prometheus_lines"] > 0
+    # every registration took one snapshot read, or none where the prefix
+    # was already indexed
+    assert {r[0] for r in b["prefix"].registrations} <= {0, 1}
+    assert C.once_per_layer(prefix_runs["c"]["weight_reads"],
+                            prefix_runs["c"]["rep"]["weights"])
+
+
+def test_prefix_phase_checks_fail_when_a_token_moves(prefix_runs):
+    c = dict(prefix_runs["c"])
+    c["reqs"] = [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                 for r in prefix_runs["c"]["reqs"]]
+    for a, b in zip(c["reqs"], prefix_runs["c"]["reqs"]):
+        a.output = list(b.output)
+    c["reqs"][0].output[-1] += 1
+    with pytest.raises(AssertionError, match="changed greedy tokens"):
+        C.check_prefix_runs(prefix_runs["a"], prefix_runs["b"], c)
+
+
+def test_prefix_launch_check_is_exact(prefix_runs):
+    run = dict(prefix_runs["b"])
+    rep, n = run["rep"], 2
+    good = {"flash_attention": n * rep["prefill_chunks"],
+            "paged_attention_fused": n * rep["decode_steps"], "paged_attention_rung": 0,
+            "exp_delta_encode": sum(run["encodes"].values()), "exp_delta_decode": 0}
+    watch = C.PrefixWatch(torch, None)
+    watch.registrations = [(1, 0, 1), (0, 0, 0)]
+    watch.adoptions = [(3, 64, 1, 0)]
+    C.check_prefix_launches("b", {**run, "launches": good, "prefix": watch}, n)
+    with pytest.raises(AssertionError, match="expected"):
+        C.check_prefix_launches("b", {**run, "launches": {**good, "flash_attention": 1},
+                                      "prefix": watch}, n)
+    watch.adoptions = [(3, 64, 2, 0)]
+    with pytest.raises(AssertionError, match="one pack an adoption"):
+        C.check_prefix_launches("b", {**run, "launches": good, "prefix": watch}, n)
+
+
+def test_prefix_watch_fails_on_a_wrong_adoption(small):
+    """A slot whose adopted rows differ from the donor snapshot fails the
+    phase at the first adoption."""
+    model, params = small
+    sched = ContinuousScheduler(model, params, C.prefix_config(_prefix_base(), True, "resident"),
+                                device="cpu")
+    backend = sched.backend
+    adopt = backend._adopt_prefix_rows
+
+    def off_by_one(slot_id, entry, lo, m):
+        adopt(slot_id, entry, lo, m)
+        backend.cache["k_planes"][0, 15, slot_id, lo] ^= 1  # the lowest plane of one row
+
+    backend._adopt_prefix_rows = off_by_one
+    trace = _prefix_trace()
+    with pytest.raises(AssertionError, match="differ from the donor snapshot"):
+        with C.PrefixWatch(torch, backend):
+            for it in trace:
+                sched.submit(it.request)
+                sched.run_until_drained()
+
+
+def test_phase3_digest_leaves_out_the_sharing_counters_unless_full():
+    reqs = _requests(1000)
+    for i, r in enumerate(reqs):
+        r.output = [i]
+    rep = {"decode_steps": 5, "kv_stored_bytes": 100}
+    more = {**rep, **{k: 7 for k in C.NEW_REPORT_KEYS}}
+    assert C.phase3_digest(reqs, more) == C.phase3_digest(reqs, rep)
+    assert C.phase3_digest(reqs, more, full=True) != C.phase3_digest(reqs, rep, full=True)
+
+
+def test_prefix_launch_deltas_count_adoptions_and_snapshots():
+    """Phase 3p's launch identity on the counts of the card run (24
+    requests, 30 layers): (b) adds one pack an adoption and one unpack a
+    snapshot beyond its chunks, decode steps and page transforms."""
+    def run(pack, unpack, chunks, steps, spans, registrations, adoptions):
+        watch = C.PrefixWatch(torch, None)
+        watch.registrations, watch.adoptions = registrations, adoptions
+        return {"launches": {"bitplane_pack": pack, "bitplane_unpack": unpack},
+                "rep": {"prefill_chunks": chunks, "decode_steps": steps},
+                "encodes": {"write_spans": spans, "reactivations": 0}, "prefix": watch}
+
+    a = run(6737, 3035, 92, 126, 137, [(0, 0, 0)] * 24, [])
+    b = run(5641, 2036, 59, 123, 104, [(1, 0, 1)] * 24, [(1, 384, 1, 0)] * 17)
+    assert C.check_prefix_launch_deltas(a, b, 30) == {"bitplane_pack": 17,
+                                                      "bitplane_unpack": 24}
+    b["launches"]["bitplane_pack"] += 30  # a layer's pack too many
+    with pytest.raises(AssertionError, match="one pack an adoption"):
+        C.check_prefix_launch_deltas(a, b, 30)

@@ -579,3 +579,111 @@ def test_cuda_get_sequence_round_trip():
     assert torch.equal(got.cpu(), torch.from_numpy(want.view("int16")))
     assert EK.LAUNCHES["exp_delta_decode"] == 2
     assert card.controller.stats.totals == host.controller.stats.totals
+
+
+# ---------------------------------------------------------------------------
+# Shared-prefix pages and weight streaming on the card
+# ---------------------------------------------------------------------------
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_prefix_snapshot_and_adoption_are_bit_exact():
+    """Full-width SmolLM-135M with a bit-plane cache: the registered
+    snapshot equals the donor slot's rows of every layer, and adopting it
+    into another slot writes planes equal to the donor's (one pack)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ContinuousScheduler, Request
+
+    dev = _cuda()
+    cfg = get_config("smollm-135m")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    sched = ContinuousScheduler(model, params,
+                                C.prefix_config(C.engine_config("fused"), True, "resident"))
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, 384).astype(np.int32)
+    donor = np.concatenate([shared, rng.integers(0, cfg.vocab, 40).astype(np.int32)])
+    sched.submit(Request(rid=0, prompt=donor, max_new_tokens=4))
+    sched.run_until_drained()
+    backend = sched.backend
+    (entry,) = backend.prefix._entries.values()
+    t = len(donor) // 16 * 16
+    assert entry.k.shape == (cfg.n_layers, t, cfg.n_kv_heads * cfg.head_dim)
+    assert entry.k.device.type == "cuda"
+    # the donor held slot 0, whose rows retirement leaves in place
+    rows = backend.slot_kv_bits(0, 0, t, layers=slice(None))
+    assert torch.equal(rows[:, 0], entry.k) and torch.equal(rows[:, 1], entry.v)
+    follower = np.concatenate([shared, rng.integers(0, cfg.vocab, 30).astype(np.int32)])
+    backend.bind_slot(5, 1)
+    K.reset_launches()
+    assert backend.match_prefix(5, follower) == len(shared)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"bitplane_pack": 1, "bitplane_unpack": 0}
+    cache = backend.cache
+    for name in ("k_planes", "v_planes"):
+        assert torch.equal(cache[name][:, :, 5, :len(shared)], cache[name][:, :, 0, :len(shared)])
+    got = backend.slot_kv_bits(5, 0, len(shared), layers=slice(None))
+    assert torch.equal(got[:, 0], entry.k[:, :len(shared)])
+    backend.retire(5, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_sharing_counters_equal_the_cpu():
+    """With no store budget the matches depend on the prompts alone: the
+    card and the CPU match the same requests, tokens, pages and chunks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantization import PrecisionLadder
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig
+
+    dev = _cuda()
+    model = build_model(get_config("smollm-135m", smoke=True))
+    params = model.init(torch.Generator().manual_seed(0))
+    base = EngineConfig(max_batch=4, max_ctx=192, ladder=PrecisionLadder(C.LADDER),
+                        codec="lz4", device_kv="bitplane", backend="paged")
+    classes = (("chat", 64, (4, 20), (4, 8), 0.6), ("agentic", 32, (4, 12), (6, 10), 0.2),
+               ("longdoc", 0, (40, 70), (2, 4), 0.2))
+    keys = ("requests_matched", "tokens_matched", "pages_matched", "prefill_chunks_skipped")
+    got = {}
+    for where, p in (("cpu", params), ("cuda", _tree_to(params, dev))):
+        run = C.serve_trace(torch, model, p, C.prefix_config(base, True, "resident"),
+                            C.prefix_trace(n=12, max_ctx=192, classes=classes))
+        got[where] = {k: run["rep"]["prefix"][k] for k in keys}
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"]["requests_matched"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_attach_weights_equals_host_copies():
+    """The weight store of card-resident params holds the blobs and bytes
+    of a store fed host copies of them, in the backend and by itself."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressed_store import StoreConfig
+    from repro_torch.core.controller import MemoryController
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import split_layer_params
+    from repro_torch.serving import ContinuousScheduler, EngineConfig
+    from repro_torch.weights import CompressedWeightStore
+
+    dev = _cuda()
+    model = build_model(get_config("smollm-135m", smoke=True))
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    host = CompressedWeightStore.from_handles(
+        split_layer_params(_tree_to(params, "cpu")),
+        MemoryController(StoreConfig(codec="lz4"), retain_events=False))
+    sched = ContinuousScheduler(model, params, EngineConfig(
+        max_ctx=128, codec="lz4", weight_stream="compressed"))
+    card = sched.backend.streamers[0].store
+    assert card.stored_bytes == host.stored_bytes and \
+        card.valid_logical_bytes == host.valid_logical_bytes
+    for li in range(card.n_layers):
+        for e in card.layer(li).entries:
+            assert card.controller.weight_tensor(e.key).segments == \
+                host.controller.weight_tensor(e.key).segments

@@ -97,8 +97,8 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(smoke):
 @pytest.mark.parametrize("change,error,match", [
     (dict(backend="ring"), NotImplementedError, "ring and sharded backends"),
     (dict(backend="sharded"), NotImplementedError, "ring and sharded backends"),
-    (dict(prefix_sharing=True), NotImplementedError, "prefix_sharing"),
-    (dict(weight_stream="compressed"), NotImplementedError, "weight_stream"),
+    (dict(prefix_sharing=True, prefill_mode="padded"), ValueError, "prefix_sharing"),
+    (dict(weight_stream="streamed"), ValueError, "weight_stream"),
     (dict(prefill_mode="padded"), NotImplementedError, "padded"),
     (dict(decode_kernel="warp"), ValueError, "decode_kernel"),
     (dict(device_kv="planes"), ValueError, "device_kv"),
