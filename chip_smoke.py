@@ -104,6 +104,13 @@ Phases (any failure exits non-zero; no phase's error is caught):
    validates with one weight event a fetch.  Where (a) and (b) part,
    check runs repeat both under a ``DecodeWatch`` and each run's row at
    every first divergence is held to the plain attention on its own cache.
+3s. The sharded memory tier: phase 3's 16 requests through
+   ``backend="sharded"``, fused kernel, at 3 shards (SmolLM-135M's 3 kv
+   heads: the head route, each page's channels cut per shard from one
+   encode) and 2 (the sequence route, whole pages dealt by page index):
+   greedy tokens equal to phase 3's paged fused run, page-write bytes
+   queued equal to its, the shards' stored logical bytes plus the writes
+   ``retire`` cancelled equal to what was queued, launches as phase 3's.
 4. The paper-pipeline quickstart (``repro_torch.quickstart``) on the card,
    launch counts reset before and read after (two packs, one
    exponent-delta encode for the KV surrogate, two matmuls): its byte
@@ -127,6 +134,24 @@ Phases (any failure exits non-zero; no phase's error is caught):
    over one prefill; prefill logits through both kernels against both
    plain versions (after the plain versions' own floor), decode against
    prefill, and every slot layer by layer.
+7. Mixtral-8x7B at full width (d 4096, 32/8 heads of 128, 8 experts of
+   d_ff 14,336, top-2, window 4,096, vocab 32,000; random weights from a
+   seeded ``torch.Generator``), its depth cut from 32 layers to 8 (32 do
+   not fit the card), served through ``backend="ring"`` with bit-plane
+   device KV and phase 3's ladder: 4 slots of an 8,192-token context, six
+   greedy requests of 1,024 to 6,000 prompt tokens and 160 new ones (two
+   inside the window, two crossing it while they decode, two starting
+   beyond it), once through the fused and once through the rung kernel,
+   launch counts reset before and read after each run (flash once a layer
+   a prefill chunk: every chunk attends over the ring's old entries and
+   itself with keys at their own positions; the paged kernel once a layer
+   a decode step over the mask the ring's positions and the window make);
+   one stored layer and the lane engine unbounded (so the store follows
+   the whole window): pages retired by the window, the store's resident
+   pages (at most 2 x (256 + 2) x 4), none evicted; host and device ms a decode
+   step (a profiler window); from a snapshot of the fused run, one decode
+   step fused, rung and plain, and one 512-token ring chunk through the
+   flash kernel and its plain version, logits within 5% of the largest.
 6. Kernel times (CUDA events and profiler device time) beside their
    bound, the plain version's time and one PyTorch call's where one
    computes the same function (device time too for the paged rows and the
@@ -159,7 +184,15 @@ Phases (any failure exits non-zero; no phase's error is caught):
    paged-attention or flash call launches the attention kernel and, when
    its keys are split, the kernel that merges the splits; an SSD call its
    three kernels (chunk states, the pass over chunks, the outputs); the
-   device times cover them all.
+   device times cover them all.  The flash row also carries, under
+   ``ring``, the kernel with key positions at phase 7's ring chunk (512
+   and 4,096 queries over a 4,096-slot ring and themselves, Mixtral's
+   heads; a full ring and one 3,000 slots filled) beside the plain
+   version, its bound over the visible pairs and SDPA with the same mask;
+   the fused paged row, under ``ring``, the kernel over a ring's mask (B 4,
+   4,096 slots, Mixtral's heads) beside SDPA with that mask.  Every row
+   counts its launches in phases 3p, 3s and 7 (``launches_phase_3p``,
+   ``launches_phase_3s``, ``launches_phase_7``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -226,6 +259,13 @@ KERNEL_ATOL = KERNEL_RTOL = 1e-2
 # layers; the tolerance is 5% of the largest logit, far below the gap a
 # wrong plane count or a wrong page would open.
 LOGITS_RTOL_OF_MAX = 5e-2
+# Phase 7's attention sub-layers on a ring snapshot, each layer fed the
+# same input and its own copy of the cache: the kernels and the plain
+# attention round the attention's float32 sums apart, then round it to
+# bf16 and project it through wo, so a row may land a bf16 step or two
+# apart at its largest magnitude; the MoE after it (top-2 expert flips)
+# is left out of this comparison.
+ATTN_BF16_STEPS = 2
 # Bit-plane matmul against its plain version: both take exact bf16 x bf16
 # products in float32; the kernel sums them in K order, the plain version
 # through cuBLAS in an order of its own.
@@ -2052,9 +2092,10 @@ def plain_flash(chunk=None):
     from repro_torch.kernels.flash_attention import ref as FR
 
     saved = FO.flash_attention
-    FO.flash_attention = lambda q, k, v, *, q_pos, kv_valid, causal=True, window=0: \
-        FR.flash_attention_ref(q, k, v, q_pos=q_pos, kv_valid=kv_valid, causal=causal,
-                               window=window, chunk=chunk or 512)
+    FO.flash_attention = lambda q, k, v, *, q_pos, kv_valid, causal=True, window=0, \
+        kv_pos=None: FR.flash_attention_ref(q, k, v, q_pos=q_pos, kv_valid=kv_valid,
+                                            causal=causal, window=window,
+                                            chunk=chunk or 512, kv_pos=kv_pos)
     try:
         yield
     finally:
@@ -3302,7 +3343,7 @@ def flash_unsplit(torch, q, k, v, pos, kv_valid):
     p = FK.plan(b, sq, k.shape[1], hp, k.shape[2], hd)
     out = torch.empty_like(q)
     err = FK._library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), kv_valid.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), kv_valid.data_ptr(), None,
         out.data_ptr(), None, b, sq, k.shape[1], hp, k.shape[2], hd, 1, 0, p["tokens"], 1,
         p["key_tiles"], torch.cuda.current_stream(q.device).cuda_stream)
     if err:
@@ -3418,6 +3459,630 @@ def time_flash_kernel(torch, err: float, case: tuple, zamba: dict, chunk: dict) 
             "library": "torch.nn.functional.scaled_dot_product_attention",
             "shapes": shapes, "serving_mix": mix}
 
+# ---------------------------------------------------------------------------
+# Phases 3s and 7: the sharded tier, and Mixtral-8x7B through the ring
+# ---------------------------------------------------------------------------
+
+# Phase 3s: phase 3's trace through backend="sharded": SmolLM-135M's 3 kv
+# heads split over 3 shards (the head route: each page's channels cut per
+# shard) and, as 3 does not divide by 2, whole pages dealt over 2 shards
+# (the sequence route)
+SHARDED_RUNS = ((3, "head"), (2, "seq"))
+# Phase 7: Mixtral-8x7B (src/repro_torch/configs/mixtral_8x7b.py) at full
+# width, cut in depth from 32 layers (about 2.9 GB of bf16 weights a layer:
+# 32 are 93 GB, past the card's 80) to 8; four slots of an 8,192-token
+# context in a 4,096-token ring; six greedy requests of 160 new tokens:
+# two prompts inside the window, two that cross it while they decode, two
+# that start beyond it
+MIXTRAL_LAYERS = 8
+MIXTRAL_BATCH, MIXTRAL_CTX, MIXTRAL_NEW = 4, 8192, 160
+MIXTRAL_PROMPTS = (1024, 2048, 3968, 4032, 4500, 6000)
+# layers written through the compressed store: every decode step queues one
+# fetch job a stored page per layer and stream (the reference's
+# accounting), about 0.1 ms of host time each, and four slots of a
+# 4,096-token window hold up to 1,032 pages a layer and stream; one layer
+# keeps a step near 150 ms of host time and the phase inside its 150 s.
+# The lane engine is unbounded, as in phase 3p: a full-width page is 32 KiB
+# a stream, and phase 3's 4 MiB window a step deferred most prompt pages
+# until their requests retired and cancelled them (PERF.md §6), so
+# the store would not follow the window it exists to follow
+MIXTRAL_STORE_LAYERS = 1
+# the profiler window of a timed ring run: this many decode steps, from the
+# first step at which every slot decodes
+RING_WINDOW_STEPS = 4
+# phase 6's ring chunk: the chunk's queries over [a full 4,096-slot ring]
+# ++ [the chunk], Mixtral's heads (32 q, 8 kv, hd 128), at two chunk sizes
+RING_CHUNKS = (512, 4096)
+# phase 6's paged attention over a ring: B 4, a 4,096-slot ring, Mixtral's
+# heads, the slots' lengths (two wrapped, one part-filled, one just full)
+RING_PAGED = (4, 4096, 8, 4, 128)
+RING_LENS = (6160, 4200, 3000, 4096)
+
+
+def sharded_config(shards: int, base=None):
+    import dataclasses
+
+    return dataclasses.replace(base or engine_config("fused"), backend="sharded", shards=shards)
+
+
+def run_sharded_phase(torch, model, params, paged_reqs, paged_ledger, requests=make_requests,
+                      base=None, runs=SHARDED_RUNS) -> dict:
+    """Phase 3s: phase 3's requests through the sharded tier, fused kernel,
+    at SHARDED_RUNS.  Each run's greedy tokens must equal phase 3's paged
+    fused run's (the device KV and the plane map do not depend on the
+    tier), its page writes queued must be the paged run's byte for byte (a
+    head route's parts sum to the page), and its shards' stored logical
+    bytes plus the writes ``retire`` cancelled must be what it queued.
+    ``requests``, ``base`` and ``runs`` default to phase 3's requests and
+    engine config and SHARDED_RUNS (a smaller model takes its own)."""
+    from repro_torch.serving import ContinuousScheduler
+
+    out = {}
+    n_layers = model.cfg.n_layers
+    dev = params["embed"]["table"].device
+    for shards, route in runs:
+        sched = ContinuousScheduler(model, params, sharded_config(shards, base), device=dev)
+        reqs = requests()
+        for m in launch_modules():
+            m.reset_launches()
+        t0 = time.perf_counter()
+        with write_job_ledger() as ledger:
+            for r in reqs:
+                sched.submit(r)
+            sched.run_until_drained()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for m in launch_modules() for k, v in m.LAUNCHES.items()}
+        rep = sched.report()
+        what = f"phase 3s [shards {shards}]"
+        if rep["shard_route"] != route or len(rep["shards"]) != shards:
+            raise AssertionError(f"{what}: route {rep['shard_route']} over "
+                                 f"{len(rep['shards'])} shards, expected {route}")
+        same = sum(a.output == b.output for a, b in zip(reqs, paged_reqs))
+        if same != len(reqs):
+            raise AssertionError(f"{what}: {len(reqs) - same} requests' greedy tokens differ "
+                                 f"from phase 3's paged run")
+        per_shard = [s["kv_logical_bytes"] for s in rep["shards"]]
+        if sum(per_shard) != rep["kv_logical_bytes"]:
+            raise AssertionError(f"{what}: shards' logical bytes {per_shard} do not sum to "
+                                 f"{rep['kv_logical_bytes']}")
+        if ledger["submitted_write_bytes"] != paged_ledger["submitted_write_bytes"]:
+            raise AssertionError(f"{what}: queued {ledger['submitted_write_bytes']} page-write "
+                                 f"bytes, the paged run {paged_ledger['submitted_write_bytes']}")
+        if rep["kv_logical_bytes"] + ledger["cancelled_write_bytes"] \
+                != ledger["submitted_write_bytes"]:
+            raise AssertionError(f"{what}: queued page writes are neither stored nor cancelled")
+        if dev.type == "cuda":  # a CPU run takes the plain versions, no launch
+            expect_launches(what, launches, {
+                "paged_attention_fused": n_layers * rep["decode_steps"],
+                "paged_attention_rung": 0, "flash_attention": n_layers * rep["prefill_chunks"],
+                "exp_delta_encode": sum(sched.backend.page_encodes.values()),
+                "exp_delta_decode": 0})
+        log(f"{what}: route {route}, {rep['decode_steps']} decode steps, tokens equal phase "
+            f"3's paged run ({same}/{len(reqs)} requests), launches {launches}; kv_logical_bytes "
+            f"by shard {per_shard} (sum {sum(per_shard)}), stored by shard "
+            f"{[s['kv_stored_bytes'] for s in rep['shards']]}; write bytes queued "
+            f"{ledger['submitted_write_bytes']} (paged {paged_ledger['submitted_write_bytes']}) "
+            f"= stored {rep['kv_logical_bytes']} + cancelled {ledger['cancelled_write_bytes']}; "
+            f"engine latency by shard {[round(s['engine_modeled_latency_ns']) for s in rep['shards']]} "
+            f"ns; wall {wall:.2f} s, {rep['decode_tok_per_s']:.1f} tok/s; digest "
+            f"{phase3_digest(reqs, rep, True)}")
+        out[shards] = {"launches": launches, "route": route, "wall": wall, "rep": rep,
+                       "reqs": reqs}
+    return out
+
+
+def mixtral_requests(vocab: int, prompts=MIXTRAL_PROMPTS, new: int = MIXTRAL_NEW) -> list:
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(1)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, n).astype(np.int32), max_new_tokens=new)
+            for i, n in enumerate(prompts)]
+
+
+def ring_config(kernel: str, max_batch: int = MIXTRAL_BATCH, max_ctx: int = MIXTRAL_CTX):
+    from repro_torch.core.quantization import PrecisionLadder
+    from repro_torch.memctl import MemCtlConfig
+    from repro_torch.serving import EngineConfig
+
+    return EngineConfig(max_batch=max_batch, max_ctx=max_ctx, ladder=PrecisionLadder(LADDER),
+                        codec="lz4", device_kv="bitplane", decode_kernel=kernel,
+                        backend="ring", store_layers=MIXTRAL_STORE_LAYERS,
+                        engine=MemCtlConfig(step_cycles=None))
+
+
+def serve_ring(torch, model, params, cfg, reqs, profile_steps: int = 0,
+               snap: bool = False) -> dict:
+    """One phase-7 run: every request submitted at once and served to the
+    end of the backlog, launch counts reset just before and read just
+    after; the store's resident pages after every step (their largest
+    count), the pages the window retired (``drop_page`` calls that dropped
+    a page) and each request's first stored page.  On the card, a profiler
+    window of ``profile_steps`` decode steps from the first step at which
+    every slot decodes gives the device time a decode step.  The host time
+    a decode step is one definition throughout: the mean wall time of the
+    steps outside that window that start and end with every slot decoding
+    (no prefill chunk), split into the model's decode call up to its
+    tokens on the host (the scheduler's ``decode_s``) and the memory
+    tier's bookkeeping (``on_decode_token`` and ``tick``: page writes,
+    window retirement, fetch jobs, the lane engine).  With ``snap``, a
+    copy of the cache
+    at the first step at which every slot decodes and one has crossed the
+    window (for the teacher-forced checks)."""
+    from repro_torch.serving import ContinuousScheduler
+
+    dev = params["embed"]["table"].device
+    sched = ContinuousScheduler(model, params, cfg, device=dev)
+    backend = sched.backend
+    stores = [t.store for t in backend.tiers]
+    retired, first_page = [0], {}
+    for st in stores:
+        def drop(key, orig=st.drop_page):
+            done = orig(key)
+            retired[0] += bool(done)
+            return done
+
+        def put(key, kv, *a, orig=st.put_page, **kw):
+            if isinstance(key.seq_id, int):
+                first_page[key.seq_id] = min(first_page.get(key.seq_id, 1 << 30), key.page_idx)
+            return orig(key, kv, *a, **kw)
+
+        st.drop_page, st.put_page = drop, put
+    tier_s = [0.0]
+    for name in ("on_decode_token", "tick"):
+        def timed(*a, orig=getattr(backend, name), **kw):
+            t = time.perf_counter()
+            try:
+                return orig(*a, **kw)
+            finally:
+                tier_s[0] += time.perf_counter() - t
+
+        setattr(backend, name, timed)
+    w = model.cfg.attn_window
+    for r in reqs:
+        sched.submit(r)
+    for m in launch_modules():
+        m.reset_launches()
+    resident, window_ms, snapshot = 0, None, None
+    decode = [0, 0.0, 0.0, 0.0]  # steps, wall, model, tier (s)
+
+    def all_decoding():
+        return all(s is not None and not s.prefilling for s in sched._slots)
+
+    t0 = time.perf_counter()
+    while sched.has_work():
+        full = all_decoding()
+        if profile_steps and window_ms is None and full and dev.type == "cuda":
+            rows = device_rows(lambda: [sched.step() for _ in range(profile_steps)],
+                               f"phase 7: {profile_steps} decode steps")
+            window_ms = sum(e.self_device_time_total for e in rows) / profile_steps / 1e3
+        else:
+            ts, t_model, t_tier = time.perf_counter(), sched.stats["decode_s"], tier_s[0]
+            sched.step()
+            if full and all_decoding():
+                decode[0] += 1
+                decode[1] += time.perf_counter() - ts
+                decode[2] += sched.stats["decode_s"] - t_model
+                decode[3] += tier_s[0] - t_tier
+        resident = max(resident, sum(st.footprint()["pages"] for st in stores))
+        if snap and snapshot is None and full and int(sched._lens.max()) > w + PAGE:
+            with uncounted():
+                snapshot = {k: v.clone() for k, v in backend.cache.items()}
+            snapshot["len"] = torch.tensor(sched._lens, device=dev)
+            snapshot["tok"] = torch.tensor([s.pending for s in sched._slots], device=dev)
+            snapshot["live"] = [s is not None and not s.prefilling for s in sched._slots]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for st in stores:
+        del st.drop_page, st.put_page
+    del backend.on_decode_token, backend.tick
+    launches = {k: v for m in launch_modules() for k, v in m.LAUNCHES.items()}
+    rep = sched.report()
+    n = max(1, decode[0])
+    return {"reqs": reqs, "rep": rep, "launches": launches, "sched": sched,
+            "resident": resident, "retired": retired[0], "first_page": first_page,
+            "encodes": dict(backend.page_encodes), "wall": wall, "decode_steps_timed": decode[0],
+            "host_ms_a_step": decode[1] / n * 1e3, "model_ms_a_step": decode[2] / n * 1e3,
+            "tier_ms_a_step": decode[3] / n * 1e3,
+            "device_ms_a_step": window_ms, "snapshot": snapshot,
+            "keeps": backend.device_keeps()}
+
+
+def check_ring_run(name: str, run: dict, model) -> None:
+    """A phase-7 run's checks: every request served in full; the fused
+    kernel once a layer a decode step (or the rung kernel, never the
+    other), flash once a layer a prefill chunk, one encode a page transform
+    and no decode; the store's resident pages within stored layers x 2
+    streams x (window pages + a boundary page + the growing tail) x slots;
+    pages retired by the window, none evicted; device bytes equal to the
+    controller's plane-scaled reads."""
+    rep, launches, sched = run["rep"], run["launches"], run["sched"]
+    n_layers = model.cfg.n_layers
+    what = f"phase 7 [{name}]"
+    if not all(r.done and not r.truncated and len(r.output) == r.max_new_tokens
+               for r in run["reqs"]):
+        raise AssertionError(f"{what}: not every request completed")
+    # a CPU run takes the plain versions and launches nothing
+    if run["sched"].device.type == "cuda":
+        per_step = n_layers * rep["decode_steps"]
+        expect_launches(what, launches, {
+            "paged_attention_fused": per_step if name == "fused" else 0,
+            "paged_attention_rung": 0 if name == "fused" else per_step * len(run["keeps"]),
+            "flash_attention": n_layers * rep["prefill_chunks"],
+            "exp_delta_encode": sum(run["encodes"].values()), "exp_delta_decode": 0})
+        if min(launches["bitplane_pack"], launches["bitplane_unpack"]) <= 0:
+            raise AssertionError(f"{what}: the plane cache was not packed and unpacked: "
+                                 f"{launches}")
+    bound = (sched.backend.stored_layers() * 2
+             * (model.cfg.attn_window // PAGE + 2) * sched.cfg.max_batch)
+    if run["resident"] > bound:
+        raise AssertionError(f"{what}: {run['resident']} resident pages, bound {bound}")
+    if run["retired"] <= 0 or rep["kv_evictions"] != 0:
+        raise AssertionError(f"{what}: {run['retired']} pages retired, "
+                             f"{rep['kv_evictions']} evicted")
+    if not rep["device_bytes_read"] == rep["kv_read_device_bytes"] > 0:
+        raise AssertionError(f"{what}: device_bytes_read {rep['device_bytes_read']} != "
+                             f"kv_read_device_bytes {rep['kv_read_device_bytes']}")
+    dev_ms = run["device_ms_a_step"]
+    busy = "" if dev_ms is None else f" (busy {dev_ms / run['host_ms_a_step']:.3f})"
+    log(f"{what}: {len(run['reqs'])} requests, {rep['decode_steps']} decode steps, "
+        f"{rep['prefill_chunks']} prefill chunks, launches {launches}, page transforms "
+        f"{run['encodes']}; pages retired by the window {run['retired']}, resident at most "
+        f"{run['resident']} (bound {bound}), evicted {rep['kv_evictions']}; first stored page "
+        f"by request {run['first_page']}; a decode step (every slot decoding, "
+        f"{run['decode_steps_timed']} steps): host {run['host_ms_a_step']:.2f} ms, of which the "
+        f"model's decode call {run['model_ms_a_step']:.2f} ms and the memory tier "
+        f"{run['tier_ms_a_step']:.2f} ms; device "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'} a step"
+        f"{busy}; decode "
+        f"{rep['decode_tok_per_s']:.1f} tok/s, prefill {rep['prefill_tokens']} tok in "
+        f"{rep['prefill_s']:.3f} s, wall {run['wall']:.2f} s; device_bytes_read "
+        f"{rep['device_bytes_read']} of kv_fetch_logical {rep['kv_fetch_logical']}; digest "
+        f"{phase3_digest(run['reqs'], rep, True)}")
+
+
+def ring_teacher_forced(torch, model, params, snap: dict, keeps) -> dict:
+    """From a snapshot of a ring serving cache: one decode step through the
+    fused kernel, the rung kernel and the plain attention, and one 512-token
+    prefill chunk into the slot with the longest context (past the window:
+    the ring chunk path) through the flash kernel and its plain version;
+    each pair's logits within LOGITS_RTOL_OF_MAX of the largest."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    cache = {k: v for k, v in snap.items() if k not in ("tok", "live")}
+    tok = snap["tok"]
+
+    def decode(kernel):
+        c = {k: v.clone() for k, v in cache.items()}
+        return model.decode(params, tok, c, keeps=keeps, decode_kernel=kernel)[0]
+
+    with uncounted():
+        fused, rung = decode("fused"), decode("rung")
+        with plain_attention():
+            plain = decode("fused")
+        slot = int(cache["len"].argmax())
+        start = int(cache["len"][slot])
+        gen = torch.Generator(device=tok.device).manual_seed(3)
+        tokens = torch.randint(0, model.cfg.vocab, (1, 512), generator=gen, device=tok.device)
+
+        def chunk():
+            c = {k: v.clone() for k, v in cache.items()}
+            return model.prefill_chunk(params, tokens, c, slot, start, 511)[0]
+
+        FK.reset_launches()
+        k_logits = chunk()
+        flash = FK.LAUNCHES["flash_attention"]
+        with plain_flash():
+            p_logits = chunk()
+    torch.cuda.synchronize()
+    if flash != model.cfg.n_layers:
+        raise AssertionError(f"phase 7: a ring chunk launched flash {flash} times")
+    scale = float(plain.abs().max())
+    out = {"decode_max_logit": scale,
+           "fused_vs_plain": float((fused - plain).abs().max()),
+           "rung_vs_plain": float((rung - plain).abs().max()),
+           "chunk_max_logit": float(p_logits.abs().max()),
+           "chunk_kernel_vs_plain": float((k_logits - p_logits).abs().max()),
+           "chunk_slot": slot, "chunk_start": start}
+    log(f"phase 7 teacher-forced: decode max|logit| {scale:.4f}, max|fused-plain| "
+        f"{out['fused_vs_plain']:.5f}, max|rung-plain| {out['rung_vs_plain']:.5f}; a 512-token "
+        f"ring chunk at {start} in slot {slot}: max|logit| {out['chunk_max_logit']:.4f}, "
+        f"max|kernel-plain| {out['chunk_kernel_vs_plain']:.5f}; tolerance "
+        f"{LOGITS_RTOL_OF_MAX} of max")
+    if max(out["fused_vs_plain"], out["rung_vs_plain"]) > LOGITS_RTOL_OF_MAX * scale or \
+            out["chunk_kernel_vs_plain"] > LOGITS_RTOL_OF_MAX * out["chunk_max_logit"]:
+        raise AssertionError("phase 7: teacher-forced logits disagree with the plain versions")
+    return out
+
+
+def check_ring_snapshot(torch, model, snap: dict, keeps) -> None:
+    """The ring glue on a snapshot of a serving cache, from the slots'
+    lengths alone: every live slot's ``pos`` plane, in every layer, holds
+    position p at ring slot p % window for the last min(len, window)
+    positions and -1 elsewhere; its plane map reads one of ``keeps`` in
+    every column and full precision in the column the next append lands
+    in (a page the ring head reclaims never keeps its rung)."""
+    w, live = model.cfg.attn_window, snap["live"]
+    lens = [int(n) for n in snap["len"]]
+    want = ring_positions(torch, snap["pos"].device, len(lens), w, lens)
+    bad = [b for b in range(len(lens)) if live[b] and not bool((snap["pos"][:, b] == want[b]).all())]
+    if bad:
+        raise AssertionError(f"phase 7: the ring positions of slots {bad} are not those of "
+                             f"their lengths {[lens[b] for b in bad]}")
+    planes = snap["planes"].cpu()
+    for b in (b for b in range(len(lens)) if live[b]):
+        row = planes[b].tolist()
+        if not set(row) <= set(keeps) or row[lens[b] % w // PAGE] != max(keeps):
+            raise AssertionError(f"phase 7: slot {b} at length {lens[b]} reads plane map {row} "
+                                 f"(keeps {keeps}, the head column {lens[b] % w // PAGE} at "
+                                 f"full precision)")
+    log(f"phase 7 snapshot: ring positions and plane maps of {sum(live)} live slots at lengths "
+        f"{lens} follow their lengths")
+
+
+def ring_attention_layers(torch, model, params, snap: dict, keeps) -> list:
+    """One decode step from a ring snapshot through the fused kernel, with
+    each layer's attention sub-layer (before the MoE) also run on the same
+    input and a copy of that layer's cache through the rung kernel and the
+    plain attention.  Returns, a layer, the largest difference of the fused
+    and the rung output from the plain one over the live slots' rows, in
+    bf16 steps at each row's largest magnitude; fails past
+    ATTN_BF16_STEPS."""
+    from repro_torch.models import transformer as T
+
+    orig, live = T.attn_apply, torch.tensor(snap["live"], device=snap["tok"].device)
+    worst = []
+
+    def watch(p, x, cfg, *, cache=None, **kw):
+        def other(kernel):
+            return orig(p, x, cfg, cache=tuple(t.clone() for t in cache),
+                        **{**kw, "decode_kernel": kernel})[0]
+
+        rung = other("rung")
+        with plain_attention():
+            plain = other("fused")
+        y, new_kv = orig(p, x, cfg, cache=cache, **kw)
+        top = plain.float().abs().amax(-1)
+        step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        worst.append(tuple(float(((o.float() - plain.float()).abs().amax(-1) / step)[live].max())
+                           for o in (y, rung)))
+        return y, new_kv
+
+    cache = {k: v.clone() for k, v in snap.items() if k not in ("tok", "live")}
+    T.attn_apply = watch
+    try:
+        with uncounted():
+            model.decode(params, snap["tok"], cache, keeps=keeps, decode_kernel="fused")
+    finally:
+        T.attn_apply = orig
+    log(f"phase 7 attention sub-layers: max|fused-plain|, max|rung-plain| a layer in bf16 "
+        f"steps at the row's largest magnitude {[(round(f, 3), round(r, 3)) for f, r in worst]}; "
+        f"tolerance {ATTN_BF16_STEPS}")
+    if len(worst) != model.cfg.n_layers or max(max(w) for w in worst) > ATTN_BF16_STEPS:
+        raise AssertionError("phase 7: an attention sub-layer disagrees with the plain attention")
+    return worst
+
+
+def mixtral_model(torch, dev, layers: int = MIXTRAL_LAYERS, smoke: bool = False,
+                  window: int | None = None):
+    """Mixtral-8x7B at full width (or SMOKE) cut to ``layers`` layers, with
+    random weights from a seeded generator on ``dev``.  SMOKE takes the
+    FULL window unless ``window`` is given, so that phase 7's trace runs
+    the card's control flow at the smoke width."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("mixtral-8x7b", smoke=smoke)
+    if smoke or window is not None:
+        cfg = dataclasses.replace(cfg, attn_window=window or get_config("mixtral-8x7b").attn_window)
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = build_model(cfg)
+    return model, model.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def run_ring_phase(torch, model, params, profile_steps: int = RING_WINDOW_STEPS,
+                   prompts=MIXTRAL_PROMPTS, new: int = MIXTRAL_NEW,
+                   max_batch: int = MIXTRAL_BATCH, max_ctx: int = MIXTRAL_CTX) -> dict:
+    """Phase 7: the Mixtral trace (``prompts``, ``new`` tokens each)
+    through the ring, fused then rung, each run checked
+    (``check_ring_run``); the two runs' token agreement; on the fused
+    run's snapshot the ring glue (``check_ring_snapshot``) and each layer's
+    attention sub-layer (``ring_attention_layers``), and on the card the
+    teacher-forced logits."""
+    runs = {}
+    for kernel in ("fused", "rung"):
+        reqs = mixtral_requests(model.cfg.vocab, prompts, new)
+        runs[kernel] = serve_ring(torch, model, params, ring_config(kernel, max_batch, max_ctx),
+                                  reqs, profile_steps=profile_steps, snap=kernel == "fused")
+        check_ring_run(kernel, runs[kernel], model)
+    w = model.cfg.attn_window
+    cross = sum(p <= w < p + new for p in prompts)
+    beyond = sum(p > w for p in prompts)
+    same = sum(a == b for fr, rr in zip(runs["fused"]["reqs"], runs["rung"]["reqs"])
+               for a, b in zip(fr.output, rr.output))
+    total = sum(len(r.output) for r in runs["fused"]["reqs"])
+    log(f"phase 7: window {w}; {cross} prompts cross it while decoding, {beyond} start beyond "
+        f"it; fused and rung runs agree on {same}/{total} greedy tokens")
+    snap, keeps = runs["fused"]["snapshot"], runs["fused"]["keeps"]
+    if snap is None:
+        raise AssertionError("phase 7: no step had every slot decoding past the window")
+    check_ring_snapshot(torch, model, snap, keeps)
+    layers = ring_attention_layers(torch, model, params, snap, keeps)
+    forced = None
+    if params["embed"]["table"].is_cuda:
+        forced = ring_teacher_forced(torch, model, params, snap, keeps)
+    for run in runs.values():
+        run["snapshot"] = None
+    return {"runs": runs, "forced": forced, "layers": layers, "agree": (same, total)}
+
+
+def ring_counts_on_cpu() -> dict:
+    """Phase 7's trace on this host's CPU at the smoke width with the FULL
+    window (control flow and counts do not follow the width, except where
+    the lane budget meets a page's bytes): the predictions a card run is
+    held to.  ``PYTHONPATH=src python3 -c "import chip_smoke as C;
+    C.ring_counts_on_cpu()"`` (a few minutes)."""
+    import torch
+
+    model, params = mixtral_model(torch, torch.device("cpu"), layers=2, smoke=True)
+    return run_ring_phase(torch, model, params, profile_steps=0)
+
+
+def ring_positions(torch, dev, b: int, w: int, ends) -> "torch.Tensor":
+    """(b, w) int32 positions of rings of w slots after ``ends`` tokens: slot
+    p % w holds position p for the last min(end, w) positions, -1 where
+    nothing was written."""
+    pos = torch.full((b, w), -1, dtype=torch.int32, device=dev)
+    for i, end in enumerate(ends):
+        p = torch.arange(max(0, end - w), end, device=dev, dtype=torch.int32)
+        pos[i, p.long() % w] = p
+    return pos
+
+
+def time_ring_flash(torch, dev) -> list:
+    """The flash kernel with key positions at the ring chunk (RING_CHUNKS):
+    C queries over [a full 4,096-slot ring] ++ [the chunk], Mixtral's heads,
+    window 4,096; and the same over a ring of which 3,000 slots were
+    written (the rest -1).  Each held to the plain version within
+    FLASH_BF16_STEPS at each row's largest magnitude, then timed (events,
+    device), beside the plain version, the bound (bytes or operations over
+    the pairs the masks leave visible) and
+    ``scaled_dot_product_attention`` with the same boolean mask
+    (``enable_gqa``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    hp, hkv, hd, w = 32, 8, 128, 4096
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for c in RING_CHUNKS:
+        for filled in (w + 2000, 3000):
+            ring = ring_positions(torch, dev, 1, w, (filled,))
+            start = filled
+            q_pos = (start + torch.arange(c, device=dev, dtype=torch.int32))[None].contiguous()
+            kv_pos = torch.cat([ring, q_pos], dim=1).contiguous()
+            kv_valid = torch.full((1,), start + c, dtype=torch.int32, device=dev)
+            q = torch.randn((1, c, hp, hd), generator=gen, device=dev).to(torch.bfloat16)
+            k = torch.randn((1, w + c, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+            v = torch.randn((1, w + c, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+            run = lambda i: FK.flash_attention(q, k, v, q_pos, kv_valid, causal=True,  # noqa: E731
+                                               window=w, kv_pos=kv_pos)
+            plain = lambda i: FR.flash_attention_ref(  # noqa: E731
+                q, k, v, q_pos=q_pos, kv_valid=kv_valid, window=w, kv_pos=kv_pos)
+            with uncounted():
+                got, want = run(0), plain(0)
+                torch.cuda.synchronize()
+                steps = row_bf16_steps(got, want)
+                if steps > FLASH_BF16_STEPS:
+                    raise AssertionError(f"phase 6: ring flash C={c} filled {filled}: "
+                                         f"{steps:.2f} bf16 steps from the plain version")
+                err = float((got.float() - want.float()).abs().max())
+                ok = ((kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :] < kv_valid[:, None, None])
+                      & (kv_pos[:, None, :] <= q_pos[:, :, None])
+                      & (kv_pos[:, None, :] > q_pos[:, :, None] - w))
+                pairs = int(ok.sum())
+                flops = 4 * hd * hp * pairs
+                nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (
+                    q_pos.numel() + kv_pos.numel())
+                b_ms, b_by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                mask = ok[:, None]
+                lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+                per_call = kernels_per_call(run, "flash_attention_")
+                k_ms = cuda_time_ms(run, iters=10)
+                k_dev = device_ms(run, "flash_attention_", 10, per_call)
+                p_ms = cuda_time_ms(plain, iters=3)
+                lib_ms, lib_dev = cuda_time_ms(lib, iters=10), device_ms(lib, "", 10)
+            rows.append({"chunk": c, "ring_filled": min(filled, w), "keys": w + c,
+                         "heads": [hp, hkv, hd], "window": w,
+                         "plan": FK.plan(1, c, w + c, hp, hkv, hd),
+                         "max_abs_err": err, "bf16_steps": steps, "ms": k_ms, "device_ms": k_dev,
+                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_flops": flops,
+                         "bound_bytes": nbytes, "bound_share": b_ms / k_dev,
+                         "library_ms": lib_ms, "library_device_ms": lib_dev,
+                         "over_library": k_dev / lib_dev})
+            log(f"phase 6: flash_attention with kv_pos, a ring chunk of {c} over {w} slots "
+                f"({min(filled, w)} written) + itself, 32/8 heads of 128, window {w}: {k_ms:.4f} / "
+                f"{k_dev:.4f} ms (events / device, {per_call} kernels a call); {steps:.2f} bf16 "
+                f"steps from plain; bound {b_ms:.4f} ms by {b_by} ({pairs} visible pairs, "
+                f"{flops} operations, {nbytes} B), {b_ms / k_dev:.3f} of it; plain {p_ms:.4f} ms; "
+                f"scaled_dot_product_attention with the mask {lib_ms:.4f} / {lib_dev:.4f} ms "
+                f"(kernel / sdpa by device {k_dev / lib_dev:.3f})")
+            del q, k, v, qt, kt, vt, mask, ok
+    torch.cuda.empty_cache()
+    return rows
+
+
+def time_ring_paged(torch, dev) -> dict:
+    """The fused paged kernel over a ring's mask (RING_PAGED, RING_LENS,
+    window 4,096, keeps drawn from {8, 12, 16}): the mask
+    ``batched_ladder_paged_attention`` folds from the ring's positions, the
+    call held to the plain version (KERNEL_ATOL / RTOL), then timed (events,
+    device) beside the plain version, its byte bound and SDPA with the
+    same boolean mask over the dense bf16 ring."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention import ref as R
+    from repro_torch.kernels.paged_attention.ref import pack_kv_ref
+
+    b, s, hkv, rep, hd = RING_PAGED
+    w = s
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q = torch.randn((b, hkv, rep, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kp, vp = pack_kv_ref(k), pack_kv_ref(v)
+    lens = torch.tensor(RING_LENS, dtype=torch.int32, device=dev)
+    kv_pos = ring_positions(torch, dev, b, w, [n + 1 for n in RING_LENS])
+    choice = torch.tensor((8, 12, 16), dtype=torch.int32, device=dev)
+    keeps = choice[torch.randint(0, 3, (b, s // PAGE), generator=gen, device=dev)].contiguous()
+    q_pos = lens[:, None]
+    ok = (kv_pos >= 0) & (kv_pos < (lens + 1)[:, None]) & (kv_pos <= q_pos) & \
+        (kv_pos > q_pos - w)
+    mask = (ok & (keeps.repeat_interleave(PAGE, dim=1) > 0)).to(torch.int8).contiguous()
+    run = lambda i: K.paged_attention_fused(q, kp, vp, keeps, mask)  # noqa: E731
+    plain = lambda i: R.paged_attention_fused_ref(q, kp, vp, keeps, mask)  # noqa: E731
+    with uncounted():
+        got, want = run(0), plain(0)
+        torch.testing.assert_close(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+        err = float((got - want).abs().max())
+        plan = K.plan(b, s, hkv, rep, hd)
+        per_call = 2 if plan["splits"] > 1 else 1
+        k_ms = cuda_time_ms(run, iters=40)
+        k_dev = device_ms(run, "paged_attention_", 40, per_call)
+        p_ms = cuda_time_ms(plain, iters=5)
+        nbytes = kernel_bytes(keeps, mask, hkv, hd // 8) + q.numel() * 2 + mask.numel() + \
+            keeps.numel() * 4 + b * hkv * rep * hd * 4
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        qd = q.reshape(b, hkv * rep, 1, hd)
+        kd, vd = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        bmask = ok[:, None, None, :]
+        lib = lambda i: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=bmask,  # noqa: E731
+                                                       enable_gqa=True)
+        lib_ms, lib_dev = cuda_time_ms(lib, iters=40), device_ms(lib, "", 40)
+    out = {"shape": list(RING_PAGED), "lens": list(RING_LENS), "window": w, "plan": plan,
+           "max_abs_err": err, "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms,
+           "bytes": nbytes, "bound_ms": b_ms, "bound_by": "bytes", "bound_share": b_ms / k_dev,
+           "library_ms": lib_ms, "library_device_ms": lib_dev, "over_library": k_dev / lib_dev}
+    log(f"phase 6: paged_attention_fused over a ring mask, B S Hkv rep hd = {RING_PAGED}, "
+        f"lengths {RING_LENS}, window {w}, keeps {{8, 12, 16}}: {k_ms:.4f} / {k_dev:.4f} ms "
+        f"(events / device); max abs err {err:.3g}; {nbytes} B, byte bound {b_ms:.5f} ms, "
+        f"{b_ms / k_dev:.3f} of it; plain {p_ms:.4f} ms; sdpa with the mask over dense bf16 "
+        f"{lib_ms:.4f} / {lib_dev:.4f} ms")
+    del k, v, kp, vp, kd, vd
+    torch.cuda.empty_cache()
+    return out
+
 
 def main() -> int:
     import torch
@@ -3478,6 +4143,7 @@ def main() -> int:
     check_fused_against_rung(torch, fused_reqs, rung_reqs, first, checks["fused"][2],
                              checks["rung"][2])
     check_write_drift(checks["fused"][:2], checks["rung"][:2])
+    paged_ledger = checks["fused"][1]
     del checks
     per_step = profile_decode(torch, model, params)
     cache, tok, keeps = snapshot(torch, model, params)
@@ -3488,6 +4154,8 @@ def main() -> int:
     mark("3")
     round_trip = memory_tier_round_trip(torch, cache)
     mark("3c")
+    sharded_runs = run_sharded_phase(torch, model, params, fused_reqs, paged_ledger)
+    mark("3s")
     prefix_runs = run_prefix_phase(torch, model, params)
     mark("3p")
     qs_launches = run_quickstart(torch)
@@ -3499,6 +4167,17 @@ def main() -> int:
     zamba = run_zamba(torch, dev)
     torch.cuda.empty_cache()
     mark("5b")
+    mixtral, mixtral_params = mixtral_model(torch, dev)
+    log(f"phase 7: mixtral-8x7b at full width (d {mixtral.cfg.d_model}, "
+        f"{mixtral.cfg.n_heads}/{mixtral.cfg.n_kv_heads} heads of {mixtral.cfg.head_dim}, "
+        f"{mixtral.cfg.n_experts} experts of d_ff {mixtral.cfg.d_ff}, top-"
+        f"{mixtral.cfg.moe_top_k}, window {mixtral.cfg.attn_window}, vocab "
+        f"{mixtral.cfg.vocab}), depth cut from 32 to {MIXTRAL_LAYERS} layers "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card after init)")
+    ring = run_ring_phase(torch, mixtral, mixtral_params)
+    del mixtral, mixtral_params
+    torch.cuda.empty_cache()
+    mark("7")
 
     kernels = time_kernels(torch, cache, keeps, errs, {
         "fused": fused_launches, "rung": rung_launches,
@@ -3508,12 +4187,20 @@ def main() -> int:
     kernels.append(time_ssd_kernel(torch, ssd_checks, mamba, zamba))
     kernels.append(time_flash_kernel(torch, errs["flash_attention"], flash_inputs, zamba,
                                      prefill))
+    kernels[-1]["ring"] = time_ring_flash(torch, dev)
+    next(k for k in kernels if k["name"] == "paged_attention_fused")["ring"] = \
+        time_ring_paged(torch, dev)
     kernels += time_exp_delta_kernels(torch, exp_delta_span, exp_delta_view, errs,
                                       fused_launches, per_step, round_trip, spans)
     for k in kernels:
         # the kernel's launches over phase 3p's three timed runs
         k["launches_phase_3p"] = sum(run["launches"].get(k["name"], 0)
                                      for run in prefix_runs.values())
+        # over phase 3s's two sharded runs and phase 7's two ring runs
+        k["launches_phase_3s"] = sum(run["launches"].get(k["name"], 0)
+                                     for run in sharded_runs.values())
+        k["launches_phase_7"] = sum(run["launches"].get(k["name"], 0)
+                                    for run in ring["runs"].values())
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err"):
             if key == "library_ms" and k[key] is None and k.get("library") == "none":
                 continue  # no single PyTorch call computes this function
@@ -3531,7 +4218,9 @@ def main() -> int:
     mark("6")
     log(f"seconds since start at the end of each phase: {marks}")
     log(f"decode tok/s: fused {fused_rep['decode_tok_per_s']:.1f}, "
-        f"rung {rung_rep['decode_tok_per_s']:.1f}; mamba2-1.3b prefill "
+        f"rung {rung_rep['decode_tok_per_s']:.1f}; mixtral-8x7b ({MIXTRAL_LAYERS} layers) "
+        f"ring fused {ring['runs']['fused']['rep']['decode_tok_per_s']:.1f}, rung "
+        f"{ring['runs']['rung']['rep']['decode_tok_per_s']:.1f}; mamba2-1.3b prefill "
         f"{mamba['prefill_ms']:.2f} ms, decode {mamba['decode_ms']:.3f} ms/step; zamba2-7b "
         f"prefill {zamba['prefill_ms']:.2f} ms, decode {zamba['decode_ms']:.3f} ms/step; total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -3,9 +3,9 @@
 An architecture registers a FULL config (the exact published shape) and a
 SMOKE config (same family, reduced depth/width, runnable on CPU in
 seconds).  The port serves the dense transformer family (``smollm-135m``),
-the SSM family (``mamba2-1.3b``) and the hybrid family (``zamba2-7b``);
-the other architectures of the reference raise until the slice that ports
-their family lands.
+the MoE family (``mixtral-8x7b``), the SSM family (``mamba2-1.3b``) and the
+hybrid family (``zamba2-7b``); the other architectures of the reference
+raise until the slice that ports them lands.
 """
 
 from __future__ import annotations
@@ -156,11 +156,12 @@ _ARCH_MODULES = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
 }
 
 #: architectures the reference registers that the port does not serve yet
 _LATER = (
-    "yi-34b", "nemotron-4-15b", "yi-9b", "deepseek-moe-16b", "mixtral-8x7b",
+    "yi-34b", "nemotron-4-15b", "yi-9b", "deepseek-moe-16b",
     "llava-next-34b", "whisper-tiny",
 )
 
@@ -170,11 +171,10 @@ ARCH_IDS = tuple(_ARCH_MODULES)
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch in _LATER:
         raise NotImplementedError(
-            f"{arch!r} is not ported yet: the port serves the dense family "
-            f"(smollm-135m), the SSM family (mamba2-1.3b) and the hybrid "
-            f"family (zamba2-7b); other configs "
-            f"and families come with the 'other model families' slice "
-            f"(ROADMAP queue 1)"
+            f"{arch!r} is not ported yet: the port serves smollm-135m "
+            f"(dense), mixtral-8x7b (moe), mamba2-1.3b (ssm) and zamba2-7b "
+            f"(hybrid); the other configs and families come with the 'other "
+            f"model families' slice (ROADMAP queue 1)"
         )
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")

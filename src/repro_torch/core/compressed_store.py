@@ -328,6 +328,23 @@ class EncodedKV:
                           (tokens // n, channels), self.group)
                 for i in range(n)]
 
+    def columns(self, c0: int, c1: int) -> "EncodedKV":
+        """The encoding of channels [c0, c1) alone, taken from this one: the
+        transform is per channel and its groups are channel-major, so each
+        group's plane bytes of those channels are one contiguous run.  Byte
+        for byte what :func:`encode_kv` of the column slice gives (a
+        sharded tier's part of a page).  Needs a single group and channel
+        runs that start on whole bytes."""
+        n_groups, channels = self.bases.shape
+        if n_groups != 1 or (c0 * self.group) % 8 or (c1 * self.group) % 8:
+            raise ValueError(f"columns [{c0}, {c1}) of {n_groups} groups of "
+                             f"{self.group} tokens are not whole plane bytes")
+        if not 0 <= c0 < c1 <= channels:
+            raise ValueError(f"columns [{c0}, {c1}) outside {channels} channels")
+        b0, b1 = c0 * self.group // 8, c1 * self.group // 8
+        return EncodedKV(self.planes[:, b0:b1], self.bases[:, c0:c1],
+                         (self.shape[0], c1 - c0), self.group)
+
 
 def encode_kv(kv, spec: FloatSpec, cfg: StoreConfig = StoreConfig()) -> EncodedKV:
     """The KV transform of the bit-plane, clustered layout, on the device

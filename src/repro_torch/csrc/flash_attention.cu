@@ -10,11 +10,14 @@
 //        j > q_pos[b, i] - window; other scores are the finite -1e30
 //   out  = sum_j bf16(exp(s_j - m)) v_j / sum_j exp(s_j - m)
 // with the running max m, the running sum and the accumulator in float32 and
-// p rounded to bf16 before p . v, as the reference does.
+// p rounded to bf16 before p . v, as the reference does.  With kv_pos (a
+// sliding-window ring cache's slots, models/attention.py _ring_chunk_append)
+// the tests read key j's absolute position kv_pos[b, j] in place of j, and
+// a negative position (an unfilled slot) is masked too.
 //
 // Layouts (the reference's, unchanged), contiguous:
 //   q (B, Sq, Hp, hd) bf16   k, v (B, Skv, Hkv, hd) bf16   out like q
-//   q_pos (B, Sq) int32      kv_valid (B,) int32
+//   q_pos (B, Sq) int32      kv_valid (B,) int32   kv_pos (B, Skv) int32 or null
 // hd is a multiple of 16 up to 128; Sq and Skv are any length (ragged edges
 // are masked here, nothing is padded in device memory).
 //
@@ -67,6 +70,11 @@
 //   launch does the causal half of the work.  Tiles that no row masks take
 //   no per-element test; only tiles at the diagonal, the window edge or
 //   the kv_valid edge do.  exp is exp2 with log2(e) folded into the scale.
+//   Keys at their own positions (kv_pos) follow no index order: a block
+//   then visits every tile of its split and tests every key, its position
+//   read from kv_pos (a ring chunk sees nearly all of its window anyway).
+//   That is an instantiation of its own (POS), so the index path compiles
+//   as it did without it.
 // - A row whose first visited tile holds no key it may see keeps m = -1e30;
 //   the next visible key's correction exp(-1e30 - m) = 0 wipes what it
 //   gathered.  A row that sees no key in any visited tile returns 0.
@@ -121,6 +129,7 @@ struct Params {
   CUtensorMap q_map, k_map, v_map;  // 4-D: (hd, heads, tokens, B)
   const int* q_pos;
   const int* kv_valid;
+  const int* kv_pos;  // null: a key's position is its index
   bf16* out;
   float* ws;  // splits > 1: acc (splits, rows, hd), then (m, l) pairs (splits, rows)
   int B, Sq, Skv, Hp, Hkv, rep;
@@ -313,6 +322,7 @@ struct Range {
   int begin, end, qmin, qmax, kv_end;
 };
 
+template <bool POS>
 __device__ __forceinline__ Range key_range(const Params& p, int b, int t0, int ntok, int split) {
   const int lane = threadIdx.x % 32;
   int qmin = INT_MAX, qmax = INT_MIN;
@@ -329,15 +339,21 @@ __device__ __forceinline__ Range key_range(const Params& p, int b, int t0, int n
   Range r;
   r.qmin = __shfl_sync(0xffffffffu, qmin, 0);  // a broadcast: uniform to the compiler
   r.qmax = __shfl_sync(0xffffffffu, qmax, 0);
-  r.kv_end = max(0, min(p.kv_valid[b], p.Skv));
-  int hi = r.kv_end;
-  if (p.causal && qmax < hi) hi = qmax + 1;
-  const int lo = p.window > 0 ? max(0, qmin - p.window + 1) : 0;
   // the last split runs on to the end of the keys (the plan may cover only
   // the tiles below a bound on kv_valid that the caller gave it)
   const int cap = split + 1 < p.splits ? (split + 1) * p.tiles_per_split : INT_MAX;
-  r.begin = max(lo / kKeys, split * p.tiles_per_split);
-  r.end = hi > lo ? min((hi + kKeys - 1) / kKeys, cap) : 0;
+  if constexpr (POS) {  // positions in no index order: every tile of the split
+    r.kv_end = p.kv_valid[b];
+    r.begin = split * p.tiles_per_split;
+    r.end = min((p.Skv + kKeys - 1) / kKeys, cap);
+  } else {
+    r.kv_end = max(0, min(p.kv_valid[b], p.Skv));
+    int hi = r.kv_end;
+    if (p.causal && qmax < hi) hi = qmax + 1;
+    const int lo = p.window > 0 ? max(0, qmin - p.window + 1) : 0;
+    r.begin = max(lo / kKeys, split * p.tiles_per_split);
+    r.end = hi > lo ? min((hi + kKeys - 1) / kKeys, cap) : 0;
+  }
   r.end = max(r.begin, r.end);
   r.kv_end = __shfl_sync(0xffffffffu, r.kv_end, 0);
   r.begin = __shfl_sync(0xffffffffu, r.begin, 0);
@@ -345,7 +361,7 @@ __device__ __forceinline__ Range key_range(const Params& p, int b, int t0, int n
   return r;
 }
 
-template <int HD>
+template <int HD, bool POS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel(const __grid_constant__ Params p) {
   using L = Smem<HD>;
@@ -413,16 +429,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int c = 0; c < kSlabs; ++c)
         tma_load(v_tile(s) + c * kKeys * kRowBytes, &p.v_map, c * kSlab, g, key0, b, v_full(s));
     };
-    // The q tile and, without a window, the split's first key tile do not
-    // depend on q_pos: they are issued before the key range is known, so
-    // that the q_pos loads are off the first tile's path.
+    // The q tile and, without a window (or with kv_pos), the split's first
+    // key tile do not depend on q_pos: they are issued before the key range
+    // is known, so that the q_pos loads are off the first tile's path.
     const int first = split * p.tiles_per_split;
-    const bool early = p.window <= 0;
+    const bool early = p.window <= 0 || POS;
     if (lane == 0) {
       load_q();
       if (early) load_kv(0, first);
     }
-    const Range r = key_range(p, b, t0, ntok, split);
+    const Range r = key_range<POS>(p, b, t0, ntok, split);
     const int n = r.end - r.begin;  // with `early` and n > 0, r.begin == first
     if (lane != 0) return;
     if (n == 0) {  // nothing to compute: the copies land before the block ends
@@ -445,7 +461,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   const int gq = lane >> 2, tq = lane & 3;
   const int row0 = wg * 64 + (warp % 4) * 16 + gq;
-  const Range r = key_range(p, b, t0, ntok, split);
+  const Range r = key_range<POS>(p, b, t0, ntok, split);
   const int n = r.end - r.begin;
   int qp[2];
 #pragma unroll
@@ -481,7 +497,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // sum, `corr` for what was gathered before, p in s.
   auto softmax = [&](int i) {
     const int k0 = (r.begin + i) * kKeys;
-    const bool whole = k0 + kKeys <= r.kv_end && (!p.causal || k0 + kKeys - 1 <= r.qmin) &&
+    const bool whole = !POS && k0 + kKeys <= r.kv_end &&
+                       (!p.causal || k0 + kKeys - 1 <= r.qmin) &&
                        (p.window <= 0 || k0 > r.qmax - p.window);
     // A whole tile keeps raw scores, and the scale is folded into exp2's
     // argument; a masked tile is scaled here, its masked scores set to the
@@ -489,7 +506,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     // masked keys then takes p = 1, which the first visible key's
     // correction wipes).
     float mx[2] = {kNegInf, kNegInf};
-    if (!whole) {  // row i2 sees keys [lo, hi), here as columns of the thread's tile
+    if constexpr (POS) {  // each key tested at its own position
+      const int* kpos = p.kv_pos + (size_t)b * p.Skv + k0 + 2 * tq;
+      const int left = p.Skv - k0 - 2 * tq;  // columns past it lie beyond Skv
+#pragma unroll
+      for (int e = 0; e < kKeys / 2; ++e) {
+        const int col = (e >> 2) * 8 + (e & 1);  // a constant once unrolled
+        const int kp = col < left ? __ldg(kpos + col) : -1;
+        const int qv = qp[(e >> 1) & 1];
+        const bool in = kp >= 0 && kp < r.kv_end && (!p.causal || kp <= qv) &&
+                        (p.window <= 0 || kp > qv - p.window);
+        s[e] = in ? s[e] * scale2 : kNegInf;
+      }
+    } else if (!whole) {  // row i2 sees keys [lo, hi), here as columns of the thread's tile
       int lo[2], hi[2];
       const int c0 = k0 + 2 * tq;
 #pragma unroll
@@ -742,7 +771,7 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int hd, i
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* q_pos, const void* kv_valid,
-           void* out, void* ws, int B, int Sq, int Skv, int Hp, int Hkv, int causal, int window,
+           const void* kv_pos, void* out, void* ws, int B, int Sq, int Skv, int Hp, int Hkv, int causal, int window,
            int tokens, int splits, int tiles_per_split, cudaStream_t stream) {
   using L = Smem<HD>;
   const int rep = Hp / Hkv;
@@ -758,6 +787,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos, const
     return (int)cudaErrorInvalidValue;
   p.q_pos = static_cast<const int*>(q_pos);
   p.kv_valid = static_cast<const int*>(kv_valid);
+  p.kv_pos = static_cast<const int*>(kv_pos);
   p.out = static_cast<bf16*>(out);
   p.ws = static_cast<float*>(ws);
   p.B = B;
@@ -774,14 +804,16 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos, const
   p.window = window;
   p.scale2 = (float)(kLog2e / std::sqrt((double)HD));
   const int smem = L::bytes(p.stages);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  void (*kernel)(Params) = kv_pos != nullptr ? flash_attention_kernel<HD, true>
+                                             : flash_attention_kernel<HD, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   p.qtiles = (Sq + tokens - 1) / tokens;
   const int units = Hkv * B * splits;
   const long long unit_bytes = 4ll * Skv * HD;  // K and V of one kv head of one batch row
   p.group = (int)std::max(1ll, std::min((long long)units, kGroupBytes / unit_bytes));
-  flash_attention_kernel<HD><<<p.qtiles * units, kThreads, smem, stream>>>(p);
+  kernel<<<p.qtiles * units, kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const int rows_all = B * Sq * Hp;
@@ -798,16 +830,17 @@ extern "C" {
 // Returns the CUDA error of the launches (0 = launched); cudaErrorInvalidValue
 // for a head_dim the kernel is not built for (a multiple of 16 up to 128) or
 // a plan it cannot take (kernel.py: plan gives tokens, splits and key tiles a
-// split; ws holds the splits' partials when splits > 1).
+// split; ws holds the splits' partials when splits > 1).  kv_pos is null, or
+// the keys' (B, Skv) int32 absolute positions.
 int flash_attention_launch(const void* q, const void* k, const void* v, const void* q_pos,
-                           const void* kv_valid, void* out, void* ws, int B, int Sq, int Skv,
+                           const void* kv_valid, const void* kv_pos, void* out, void* ws, int B, int Sq, int Skv,
                            int Hp, int Hkv, int hd, int causal, int window, int tokens,
                            int splits, int tiles_per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(HD)                                                                      \
   case HD:                                                                                  \
-    return launch<HD>(q, k, v, q_pos, kv_valid, out, ws, B, Sq, Skv, Hp, Hkv, causal, window, \
-                      tokens, splits, tiles_per_split, s);
+    return launch<HD>(q, k, v, q_pos, kv_valid, kv_pos, out, ws, B, Sq, Skv, Hp, Hkv, causal, \
+                      window, tokens, splits, tiles_per_split, s);
   switch (hd) {
     FLASH_CASE(16)
     FLASH_CASE(32)

@@ -55,7 +55,7 @@ def reset_launches() -> None:
 def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_launch.argtypes = [p] * 7 + [i] * 11 + [p]
+    lib.flash_attention_launch.argtypes = [p] * 8 + [i] * 11 + [p]
     lib.flash_attention_launch.restype = i
     return lib
 
@@ -101,13 +101,17 @@ def plan(b: int, sq: int, skv: int, hp: int, hkv: int, hd: int,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, kv_valid: torch.Tensor, *,
-                    causal: bool, window: int, valid: int | None = None) -> torch.Tensor:
+                    causal: bool, window: int, valid: int | None = None,
+                    kv_pos: torch.Tensor | None = None) -> torch.Tensor:
     """q (B, Sq, Hp, hd) bf16; k/v (B, Skv, Hkv, hd) bf16 with Hp a
     multiple of Hkv and at most 128 q heads a kv head; q_pos (B, Sq)
-    int32; kv_valid (B,) int32; all contiguous, 16-byte aligned, on one
-    CUDA device; hd in :data:`HEAD_DIMS`.  ``valid``, where the caller
-    knows it on the host, bounds kv_valid and shapes the launch plan (a
-    larger kv_valid still attends right, at the last split's pace).
+    int32; kv_valid (B,) int32; kv_pos, optional, (B, Skv) int32: the
+    keys' absolute positions (-1 = unfilled), which the masks then test in
+    place of the keys' indices and which turn the tile skipping off; all
+    contiguous, 16-byte aligned, on one CUDA device; hd in
+    :data:`HEAD_DIMS`.  ``valid``, where the caller knows it on the host,
+    bounds kv_valid and shapes the launch plan (a larger kv_valid still
+    attends right, at the last split's pace); with kv_pos it must be None.
     Returns (B, Sq, Hp, hd) bf16."""
     dev = q.device
     if dev.type != "cuda":
@@ -126,10 +130,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ("k", k, torch.bfloat16, (bsz, skv, hkv, hd)),
             ("v", v, torch.bfloat16, (bsz, skv, hkv, hd)),
             ("q_pos", q_pos, torch.int32, (bsz, sq)),
-            ("kv_valid", kv_valid, torch.int32, (bsz,))):
+            ("kv_valid", kv_valid, torch.int32, (bsz,)),
+            ("kv_pos", kv_pos, torch.int32, (bsz, skv))):
+        if t is None:
+            continue
         check(name, t, dtype, shape, dev)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    if kv_pos is not None and valid is not None:
+        raise ValueError("keys at their own positions take no bound on kv_valid")
     out = torch.empty((bsz, sq, hp, hd), dtype=torch.bfloat16, device=dev)
     if out.numel() == 0:
         return out
@@ -140,7 +149,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          device=dev)
     err = _library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_valid.data_ptr(),
-        out.data_ptr(), None if ws is None else ws.data_ptr(), bsz, sq, skv, hp, hkv, hd,
+        None if kv_pos is None else kv_pos.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), bsz, sq, skv, hp, hkv, hd,
         int(bool(causal)), int(window), p["tokens"], p["splits"], p["tiles_per_split"],
         torch.cuda.current_stream(dev).cuda_stream,
     )

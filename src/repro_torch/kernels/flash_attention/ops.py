@@ -20,22 +20,28 @@ from repro_torch.kernels.flash_attention import ref as R
 
 
 def flash_attention(q, k, v, *, q_pos, kv_valid, causal: bool = True,
-                    window: int = 0):
+                    window: int = 0, kv_pos=None):
     """q (B, Sq, Hp, hd); k/v (B, Skv, Hkv, hd), q head ``h`` reading kv
     head ``h // (Hp / Hkv)``; q_pos (B, Sq) absolute query positions;
-    kv_valid an int or (B,): keys at positions >= it are masked.  See
-    :func:`.ref.flash_attention_ref` for the masks and rounding points.
-    Returns (B, Sq, Hp, hd) in q.dtype."""
+    kv_valid an int or (B,): keys at positions >= it are masked; kv_pos
+    (B, Skv), optional: the keys' absolute positions (a ring cache; -1 =
+    unfilled), else their indices.  See :func:`.ref.flash_attention_ref`
+    for the masks and rounding points.  Returns (B, Sq, Hp, hd) in
+    q.dtype."""
     if q.device.type == "cpu":
         return R.flash_attention_ref(q, k, v, q_pos=q_pos, kv_valid=kv_valid,
-                                     causal=causal, window=window)
+                                     causal=causal, window=window, kv_pos=kv_pos)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
     b = q.shape[0]
     # an int kv_valid (a prefill chunk's end in its slot) is known here: the
-    # launch plan splits only the keys below it
-    valid = kv_valid if isinstance(kv_valid, int) else None
+    # launch plan splits only the keys below it.  Keys at their own
+    # positions are in no index order, so the plan then covers them all.
+    valid = kv_valid if isinstance(kv_valid, int) and kv_pos is None else None
     q_pos = q_pos.to(device=q.device, dtype=torch.int32).expand(b, q.shape[1])
     kv_valid = R.kv_valid_rows(kv_valid, b, q.device)
+    if kv_pos is not None:
+        kv_pos = aligned(kv_pos.to(device=q.device, dtype=torch.int32)
+                         .expand(b, k.shape[1]).contiguous())
     return K.flash_attention(*(aligned(t) for t in (q, k, v, q_pos, kv_valid)),
-                             causal=causal, window=window, valid=valid)
+                             causal=causal, window=window, valid=valid, kv_pos=kv_pos)

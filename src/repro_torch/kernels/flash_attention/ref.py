@@ -25,15 +25,18 @@ def kv_valid_rows(kv_valid, b: int, device) -> torch.Tensor:
 
 
 def flash_attention_ref(q, k, v, *, q_pos, kv_valid, causal: bool = True,
-                        window: int = 0, chunk: int = 512):
-    """Online-softmax attention over keys at positions ``arange(Skv)``.
+                        window: int = 0, chunk: int = 512, kv_pos=None):
+    """Online-softmax attention over keys at positions ``kv_pos`` (default
+    ``arange(Skv)``).
 
     q (B, Sq, Hp, hd); k/v (B, Skv, Hkv, hd), Hp a multiple of Hkv: q head
     ``h`` reads kv head ``h // (Hp / Hkv)`` (the grouped layout).  q_pos
     (B, Sq) int: the queries' absolute positions.  kv_valid: an int or
-    (B,): keys at positions >= it are masked.  ``causal`` masks keys after
-    each query's position; ``window`` > 0 also masks keys at positions <=
-    q_pos - window.  Scores, the running max and sum are float32, ``p`` is
+    (B,): keys at positions >= it are masked.  ``kv_pos`` (B, Skv) int,
+    optional: each key's absolute position (a ring cache's slots, not
+    ordered by index); a negative position marks an unfilled slot, masked.
+    ``causal`` masks keys after each query's position; ``window`` > 0 also
+    masks keys at positions <= q_pos - window.  Scores, the running max and sum are float32, ``p`` is
     rounded to q's dtype before ``p·v``, and the scale is 1/sqrt(hd), as in
     the reference.  Masked scores are the finite NEG_INF, so a row whose
     first chunk holds no visible key carries garbage that the next visible
@@ -57,8 +60,12 @@ def flash_attention_ref(q, k, v, *, q_pos, kv_valid, causal: bool = True,
         vh = v[:, c0:c0 + chunk][:, :, hm].float()
         ck = kh.shape[1]
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kh) * scale
-        kpos = torch.arange(c0, c0 + ck, device=q.device)[None, None, None, :]
-        ok = kpos < kv_valid[:, None, None, None]
+        if kv_pos is None:
+            kpos = torch.arange(c0, c0 + ck, device=q.device)[None, None, None, :]
+            ok = kpos < kv_valid[:, None, None, None]
+        else:
+            kpos = kv_pos[:, c0:c0 + ck].to(q.device)[:, None, None, :]
+            ok = (kpos >= 0) & (kpos < kv_valid[:, None, None, None])
         if causal:
             ok = ok & (kpos <= qp)
         if window > 0:

@@ -100,6 +100,8 @@ def batched_ladder_paged_attention(
     page_tokens: int = 16,
     bits: int = 16,
     q_pos: torch.Tensor | None = None,
+    kv_pos: torch.Tensor | None = None,
+    window: int = 0,
     kernel: str = "fused",
 ) -> torch.Tensor:
     """Multi-slot decode step over a shared bit-plane cache.
@@ -109,7 +111,10 @@ def batched_ladder_paged_attention(
     assigned to each slot's device page (entries come from ``keeps``);
     valid_len (B,) int32 — per-slot valid cache entries; keeps — the set of
     distinct plane counts the ladder can assign (the rung strategy launches
-    once per member); q_pos (B, 1) optional absolute query positions.
+    once per member); q_pos (B, 1) optional absolute query positions;
+    kv_pos (B, S) optional absolute slot positions of a ring cache (-1 =
+    unfilled), with ``window`` > 0 masking keys at or before q_pos -
+    window.  Positions and window fold into the mask both kernels take.
 
     Returns (B, 1, Hp, hd) in q.dtype; a row with no valid entries is zero.
     """
@@ -125,10 +130,16 @@ def batched_ladder_paged_attention(
     valid_len = torch.as_tensor(valid_len, device=q.device)
     if valid_len.dim() == 0:
         valid_len = valid_len.expand(b)
-    kpos = torch.arange(s_total, device=q.device, dtype=torch.int32)[None]
-    ok = kpos < valid_len[:, None]
+    if kv_pos is None:
+        kpos = torch.arange(s_total, device=q.device, dtype=torch.int32)[None]
+        ok = kpos < valid_len[:, None]
+    else:
+        kpos = kv_pos
+        ok = (kpos >= 0) & (kpos < valid_len[:, None])
     if q_pos is not None:
         ok &= kpos <= q_pos[:, :1]
+        if window > 0:
+            ok &= kpos > q_pos[:, :1] - window
     if kernel == "fused" and s_total % page_tokens == 0:
         page_keep = page_planes.repeat_interleave(page_tokens, dim=1)
         # a page outside the rung set entirely (keep <= 0) stays unread

@@ -15,6 +15,13 @@
   Bit-plane decode packs the new token and runs the paged-attention
   kernel, which reads only the planes the per-page plane map prescribes;
   a prefill chunk attends densely at full precision and packs its rows.
+* A sliding-window config (``cfg.attn_window`` > 0, Mixtral) serves from
+  a ring cache: the sequence axis holds ``window`` slots, a token at
+  absolute position p lands in slot ``p % window``, and a ``pos`` plane
+  (B, window) records each slot's absolute position (-1 = unfilled).  A
+  prefill chunk attends over [the ring's old entries] ++ [the chunk] with
+  every key at its own position (the flash kernel's ``kv_pos``); decode
+  folds the positions and the window into the paged kernels' mask.
 
 The reference rebuilds the cache functionally on every step; here the
 cache tensors are updated in place (each place says so), since a per-layer
@@ -60,20 +67,26 @@ def _scale(hd: int, device) -> torch.Tensor:
     return torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32, device=device)
 
 
-def decode_attention(q, k, v, *, q_pos, kv_valid):
+def decode_attention(q, k, v, *, q_pos, kv_valid, window=0, kv_pos=None):
     """Single-token causal attention over a dense cache (the reference's
-    ``decode_attention``): q (B, 1, Hp, hd); k/v (B, Skv, Hkv, hd).  GQA is
-    a reshape of q (grouped head layout); scores are float32."""
+    ``decode_attention``): q (B, 1, Hp, hd); k/v (B, Skv, Hkv, hd); kv_pos
+    (B, Skv) the slots' absolute positions of a ring cache (-1 =
+    unfilled), else their indices; ``window`` > 0 masks keys at or before
+    q_pos - window.  GQA is a reshape of q (grouped head layout); scores
+    are float32."""
     b, sq, hp, hd = q.shape
     hkv = k.shape[2]
     rep = hp // hkv
     qf = q.reshape(b, hkv, rep, hd).float()
     s = torch.einsum("bkrd,bskd->bkrs", qf, k.float()) * _scale(hd, q.device)
-    kpos = torch.arange(k.shape[1], device=q.device)[None]
+    kpos = (torch.arange(k.shape[1], device=q.device)[None] if kv_pos is None
+            else kv_pos)
     kv_valid = torch.as_tensor(kv_valid, device=q.device)
     if kv_valid.dim() == 0:
         kv_valid = kv_valid.expand(b)
-    ok = (kpos < kv_valid[:, None]) & (kpos <= q_pos[:, :1])
+    ok = (kpos >= 0) & (kpos < kv_valid[:, None]) & (kpos <= q_pos[:, :1])
+    if window > 0:
+        ok &= kpos > q_pos[:, :1] - window
     s = torch.where(ok[:, None, None, :], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -83,20 +96,58 @@ def decode_attention(q, k, v, *, q_pos, kv_valid):
     return o.reshape(b, 1, hp, hd).to(q.dtype)
 
 
-def _bitplane_cache_step(q, k, v, cache, *, pos, cache_len, kv_planes,
-                         keeps, decode_kernel="fused"):
-    """One step against a bit-plane packed device cache (reference
-    ``_bitplane_cache_step``, without its ring branch).
+def _ring_chunk_append(q, k, v, ck, cv, cpos, *, pos, cache_len: int,
+                       append_valid, window: int):
+    """Ring chunk append (reference ``_ring_chunk_append``): a bucketed
+    prefill chunk of c <= window tokens into a one-row sliding-window ring.
+    The chunk attends over [the ring's old entries] ++ [the chunk itself],
+    each key at its absolute position: a slot the chunk is about to
+    overwrite is still visible at its OLD position to the chunk's early
+    queries, and a slot's old position p and its new occupant p + window
+    never both pass the window mask for one query.  Then the REAL tokens
+    (positions < ``append_valid``, the chunk's end when None) are written
+    into their slots ``p % window`` of ck, cv and cpos, IN PLACE: a
+    right-padded ragged tail must not clobber older in-window entries."""
+    w, c = ck.shape[1], k.shape[1]
+    idx = int(cache_len) + torch.arange(c, device=q.device)
+    valid_end = int(cache_len) + c if append_valid is None else int(append_valid)
+    out = flash_ops.flash_attention(
+        q, torch.cat([ck, k.to(ck.dtype)], dim=1), torch.cat([cv, v.to(cv.dtype)], dim=1),
+        q_pos=pos, kv_valid=valid_end, window=window,
+        kv_pos=torch.cat([cpos, pos.to(cpos.dtype)], dim=1))
+    keep = idx < valid_end
+    slots = idx[keep] % w
+    ck[:, slots] = k[:, keep].to(ck.dtype)
+    cv[:, slots] = v[:, keep].to(cv.dtype)
+    cpos[:, slots] = pos[:, keep].to(cpos.dtype)
+    return out
 
-    cache: (k_planes, v_planes) — per-layer views, (bits, B, S, Hkv, hd//8)
-    uint8, updated IN PLACE.  kv_planes: (B, S/16) int32 per-page plane
-    counts; keeps: the distinct plane counts kv_planes may hold.  Decode
-    (one token) packs the token and runs the paged-attention kernel; a
-    prefill chunk (c > 1) attends densely at full precision and packs its
-    rows."""
-    kp, vp = cache
+
+def _bitplane_cache_step(q, k, v, cache, *, pos, cache_len, kv_planes,
+                         keeps, window=0, append_valid=None,
+                         decode_kernel="fused"):
+    """One step against a bit-plane packed device cache (reference
+    ``_bitplane_cache_step``).
+
+    cache: (k_planes, v_planes[, kv_pos]) — per-layer views, planes (bits,
+    B, S, Hkv, hd//8) uint8 and a ring's (B, S) int32 positions, updated
+    IN PLACE.  kv_planes: (B, S/16) int32 per-page plane counts; keeps:
+    the distinct plane counts kv_planes may hold.  Decode (one token) packs
+    the token and runs the paged-attention kernel; a prefill chunk (c > 1)
+    attends densely at full precision and packs its rows (a ring chunk:
+    one unpack of the window, the ring append, one pack of the whole
+    window, since the chunk's slots are scattered)."""
+    ring = len(cache) == 3
+    kp, vp = cache[0], cache[1]
+    cpos = cache[2] if ring else None
     bits = kp.shape[0]
     c = k.shape[1]
+    if c > 1 and ring:
+        kd, vd = bitplane_ops.unpack_kv_pair(kp, vp, bits, bits)
+        out = _ring_chunk_append(q, k, v, kd, vd, cpos, pos=pos, cache_len=cache_len,
+                                 append_valid=append_valid, window=window)
+        bitplane_ops.pack_kv_into(kd, vd, kp, vp, 0)
+        return out
     if c > 1:  # prefill chunk: full-precision dense attend, pack on adoption
         end = int(cache_len) + c
         if end > kp.shape[2]:
@@ -106,7 +157,8 @@ def _bitplane_cache_step(q, k, v, cache, *, pos, cache_len, kv_planes,
         kd, vd = bitplane_ops.unpack_kv_pair(kp, vp, bits, bits)
         kd[:, cache_len:end] = k.to(kd.dtype)
         vd[:, cache_len:end] = v.to(vd.dtype)
-        out = flash_ops.flash_attention(q, kd, vd, q_pos=pos, kv_valid=end)
+        out = flash_ops.flash_attention(q, kd, vd, q_pos=pos, kv_valid=end,
+                                        window=window)
         # in place: the reference's dynamic_update_slice of the packed rows
         bitplane_ops.pack_kv_into(k, v, kp, vp, int(cache_len))
         return out
@@ -114,36 +166,42 @@ def _bitplane_cache_step(q, k, v, cache, *, pos, cache_len, kv_planes,
     # reference's kp.at[:, rows, clip(len, 0, S - 1)].set, in place), then
     # the partial-plane kernel (per-slot valid lengths and ladders).  Idle
     # rows append garbage at their own position, masked for every real query.
+    # A ring appends at slot ln % S (computed here, so the kernel's clamp
+    # never acts) and publishes the token's position.
     ln = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
     if ln.dim() == 0:
         ln = ln.expand(kp.shape[1])
-    bitplane_ops.pack_kv_into(k, v, kp, vp, ln)
+    slot = ln % kp.shape[2] if ring else ln
+    bitplane_ops.pack_kv_into(k, v, kp, vp, slot)
+    if ring:
+        cpos[torch.arange(kp.shape[1], device=q.device), slot.long()] = ln
     out = batched_ladder_paged_attention(
         q, kp, vp, kv_planes, ln + 1,
         keeps=tuple(keeps) if keeps is not None else (bits,),
-        bits=bits, q_pos=pos, kernel=decode_kernel,
+        bits=bits, q_pos=pos, kv_pos=cpos, window=window, kernel=decode_kernel,
     )
     return out.to(q.dtype)
 
 
 def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
-               kv_planes=None, keeps=None, decode_kernel="fused"):
+               kv_planes=None, keeps=None, decode_kernel="fused",
+               append_valid=None):
     """One attention sub-layer (reference ``attn_apply``: the ``cache=None``,
-    dense per-row / prefill-append and bit-plane branches).
+    dense per-row / prefill-append, ring and bit-plane branches).
 
     x: (B, S, d); pos: (B, S) absolute positions.  cache: None (causal
     self-attention over x, the new (k, v) returned for building a cache),
-    a dense (k, v) pair of (B, S_cache, Hkv, hd) rows, or a bit-plane
-    (k_planes, v_planes) pair — either updated IN PLACE.  cache_len: int
+    a dense (k, v) pair of (B, S_cache, Hkv, hd) rows, a dense ring (k, v,
+    kv_pos) with kv_pos (B, window) int32, or a bit-plane (k_planes,
+    v_planes[, kv_pos]) tuple — each updated IN PLACE.  cache_len: int
     (prefill chunk appended at that offset) or (B,) per-row lengths
-    (continuous-batching decode, one token per row).
+    (continuous-batching decode, one token per row).  The attention window
+    is ``cfg.attn_window`` (0 = full causal).  ``append_valid``: the
+    absolute end of a ring chunk's REAL tokens (a right-padded ragged tail
+    writes none of its pad into the ring).
     Returns (y, new_kv) — new_kv is the projected (k, v) when cache is None.
     """
-    if cfg.attn_window > 0:
-        raise NotImplementedError(
-            "sliding-window attention (ring caches) is not ported yet: it "
-            "comes with the 'ring and sharded backends' slice (ROADMAP queue 1)"
-        )
+    window = cfg.attn_window
     hp = params["wq"].shape[1]
     d = x.shape[-1]
     b, s = x.shape[0], x.shape[1]
@@ -156,12 +214,35 @@ def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
 
     new_kv = None
     if cache is None:
-        out = flash_ops.flash_attention(q, k, v, q_pos=pos, kv_valid=pos[:, -1] + 1)
+        out = flash_ops.flash_attention(q, k, v, q_pos=pos, kv_valid=pos[:, -1] + 1,
+                                        window=window)
         new_kv = (k, v)
     elif cache[0].dtype == torch.uint8:
         out = _bitplane_cache_step(q, k, v, cache, pos=pos,
                                    cache_len=cache_len, kv_planes=kv_planes,
-                                   keeps=keeps, decode_kernel=decode_kernel)
+                                   keeps=keeps, window=window,
+                                   append_valid=append_valid,
+                                   decode_kernel=decode_kernel)
+    elif len(cache) == 3:
+        ck, cv, cpos = cache
+        w = ck.shape[1]
+        if s > 1:
+            out = _ring_chunk_append(q, k, v, ck, cv, cpos, pos=pos, cache_len=cache_len,
+                                     append_valid=append_valid, window=window)
+        else:
+            # per-row lengths (continuous batching: idle and mid-prefill
+            # rows append a dummy token at their own next slot, masked for
+            # every real query) or one aligned length; in place: the
+            # reference's ck.at[rows, len % w].set
+            ln = torch.as_tensor(cache_len, dtype=torch.int32, device=x.device)
+            ln = ln.expand(b) if ln.dim() == 0 else ln
+            rows = torch.arange(b, device=x.device)
+            slot = (ln % w).long()
+            ck[rows, slot] = k[:, 0].to(ck.dtype)
+            cv[rows, slot] = v[:, 0].to(cv.dtype)
+            cpos[rows, slot] = ln.to(cpos.dtype)
+            out = decode_attention(q, ck, cv, q_pos=pos, kv_valid=ln + 1,
+                                   window=window, kv_pos=cpos)
     elif torch.is_tensor(cache_len) and cache_len.dim() == 1:
         # continuous batching: each row appends its token at its own slot
         if s != 1:
@@ -172,7 +253,8 @@ def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
         # in place: the reference's ck.at[rows, slot].set(k[:, 0])
         ck[rows, slot] = k[:, 0].to(ck.dtype)
         cv[rows, slot] = v[:, 0].to(cv.dtype)
-        out = decode_attention(q, ck, cv, q_pos=pos, kv_valid=cache_len + 1)
+        out = decode_attention(q, ck, cv, q_pos=pos, kv_valid=cache_len + 1,
+                               window=window)
     else:
         ck, cv = cache
         end = int(cache_len) + s
@@ -187,9 +269,10 @@ def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
         cv[:, cache_len:end] = v.to(cv.dtype)
         # over the whole cache, rows past `end` masked, as the reference
         if s == 1:
-            out = decode_attention(q, ck, cv, q_pos=pos, kv_valid=end)
+            out = decode_attention(q, ck, cv, q_pos=pos, kv_valid=end, window=window)
         else:
-            out = flash_ops.flash_attention(q, ck, cv, q_pos=pos, kv_valid=end)
+            out = flash_ops.flash_attention(q, ck, cv, q_pos=pos, kv_valid=end,
+                                            window=window)
 
     if hp != cfg.n_heads:  # mask padded heads
         valid = torch.as_tensor(valid_q_heads(hp, cfg.n_heads, cfg.n_kv_heads),

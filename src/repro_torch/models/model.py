@@ -1,12 +1,12 @@
-"""Model API of the port: the dense, SSM and hybrid branches of the
-reference's ``models/model.py::build_model``, and the hybrid part of its
-``prepare_decode_cache``.
+"""Model API of the port: the dense, MoE, SSM and hybrid branches of the
+reference's ``models/model.py::build_model``, and those families' part of
+its ``prepare_decode_cache``.
 
 ``build_model(cfg)`` returns a model whose methods keep the reference's
 call shapes (parameters are passed in, as in JAX, so the serving stack,
 the step functions and the parity tests hand the same nested dict around).
 
-Dense (:class:`Model`):
+Dense and MoE (:class:`Model`; a sliding-window config's cache is a ring):
 
     init(generator=None, device=None)                 -> params
     prefill_chunk(params, tokens, cache, slot, start, last_idx)
@@ -54,7 +54,8 @@ def _generator(generator, device) -> torch.Generator:
 
 
 class Model(torch.nn.Module):
-    """The dense decoder-only LM.  ``forward`` is one decode step."""
+    """The decoder-only LM of the dense and MoE families.  ``forward`` is
+    one decode step."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -133,10 +134,13 @@ class HybridModel(_StateModel):
 
 def prepare_decode_cache(cfg: ModelConfig, cache: dict, max_len: int) -> dict:
     """A prefill cache made ready for ``decode`` up to ``max_len`` tokens of
-    context: the hybrid's shared-block k/v padded with zero rows along the
-    sequence to ``max_len`` (never cut); the SSM state as it is.  The dense
-    family's ring conversion is not ported (its serving path builds its
-    cache chunk by chunk)."""
+    context: the dense and MoE families' k/v padded along the sequence, or
+    a sliding-window config's ring built
+    (:func:`~repro_torch.models.transformer.ring_cache_from_prefill`); the
+    hybrid's shared-block k/v padded with zero rows along the sequence to
+    ``max_len`` (never cut); the SSM state as it is."""
+    if cfg.family in ("dense", "moe"):
+        return T.ring_cache_from_prefill(cache, cfg, max_len)
     if cfg.family == "ssm":
         return cache
     if cfg.family != "hybrid":
@@ -152,14 +156,14 @@ def prepare_decode_cache(cfg: ModelConfig, cache: dict, max_len: int) -> dict:
 
 
 def build_model(cfg: ModelConfig) -> Model | SSMModel | HybridModel:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return Model(cfg)
     if cfg.family == "ssm":
         return SSMModel(cfg)
     if cfg.family == "hybrid":
         return HybridModel(cfg)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: the MoE, enc-dec and VLM "
+        f"family {cfg.family!r} is not ported yet: the enc-dec and VLM "
         f"families come with the 'other model families' slice (ROADMAP queue "
         f"1)"
     )

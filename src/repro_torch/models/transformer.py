@@ -1,5 +1,5 @@
-"""Decoder-only dense LM (port of the reference's ``models/transformer.py``:
-the serving entry points).
+"""Decoder-only LM of the dense and MoE families (port of the reference's
+``models/transformer.py``: the serving entry points).
 
 Parameters are a nested dict in the reference's layout — layer tensors
 stacked on axis 0 — so weights carry across bit-exactly
@@ -8,9 +8,11 @@ stacked on axis 0 — so weights carry across bit-exactly
 
 Caches: dense ``{'k','v': (L, B, S, Hkv, hd) bf16, 'len'}`` or bit-plane
 ``{'k_planes','v_planes': (L, bits, B, S, Hkv, hd//8) uint8, 'planes':
-(B, S/16) int32, 'len'}``.  Where the reference returns a new cache, these
-functions write the same rows into the given cache tensors in place and
-return the same dict.
+(B, S/16) int32, 'len'}``.  A sliding-window config's cache is a ring of
+S = window slots and carries ``'pos': (L, B, S) int32``, each slot's
+absolute position (-1 = unfilled).  Where the reference returns a new
+cache, these functions write the same rows into the given cache tensors in
+place and return the same dict.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.kernels.paged_attention.ops import pack_kv_planes
 from repro_torch.models.attention import attn_apply, attn_params
+from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.models.layers import (
     embed_apply,
     embed_params,
@@ -33,26 +36,32 @@ from repro_torch.models.layers import (
 
 
 def block_params(generator: torch.Generator, cfg, dtype) -> dict:
-    """One pre-norm block's weights {ln1, attn, ln2, mlp (SwiGLU)}."""
+    """One pre-norm block's weights {ln1, attn, ln2, mlp (SwiGLU)}, or
+    {..., moe} for the MoE family."""
     d, ff, dev = cfg.d_model, cfg.d_ff, generator.device
-    return {
+    p = {
         "ln1": rmsnorm_params(d, dtype, dev),
         "attn": attn_params(generator, cfg, dtype),
         "ln2": rmsnorm_params(d, dtype, dev),
-        "mlp": {
+    }
+    if cfg.family == "moe":
+        p["moe"] = moe_params(generator, cfg, dtype)
+    else:
+        p["mlp"] = {
             "w_gate": he_init((d, ff), generator, dtype),
             "w_in": he_init((d, ff), generator, dtype),
             "w_out": he_init((ff, d), generator, dtype, fan_in=ff),
-        },
-    }
+        }
+    return p
 
 
 def init_lm_params(cfg, generator: torch.Generator) -> dict:
     """Random weights in the reference's layout, drawn from ``generator``
     (on the device the parameters should live on)."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (the dense slice only)")
+            f"family {cfg.family!r} is not a decoder-only LM of this module "
+            f"(dense and moe)")
     dtype = pdtype(cfg)
     d = cfg.d_model
     embed = embed_params(generator, cfg.vocab_padded, d, dtype)
@@ -99,37 +108,50 @@ def named_layer_tensors(handle: dict, prefix: str = "") -> list:
 
 
 def block_apply(lp, x, cfg, *, pos, cache=None, cache_len=None, kv_planes=None,
-                keeps=None, decode_kernel="fused"):
-    """One pre-norm transformer block {ln1, attn, ln2, mlp} over x (B, S, d)
-    (the dense family's layer and Zamba2's shared block).  The cache
-    arguments are :func:`attn_apply`'s.  Returns (x, new_kv): new_kv is
-    the projected (k, v) when ``cache`` is None."""
+                keeps=None, decode_kernel="fused", append_valid=None):
+    """One pre-norm transformer block {ln1, attn, ln2, mlp or moe} over x
+    (B, S, d) (the dense and MoE families' layer and Zamba2's shared
+    block).  The cache arguments are :func:`attn_apply`'s.  The MoE layer
+    takes the inference capacity when a cache is given (prefill and
+    decode), the training one otherwise, as the reference.  Returns (x,
+    new_kv): new_kv is the projected (k, v) when ``cache`` is None."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     attn_out, new_kv = attn_apply(lp["attn"], h, cfg, pos=pos, cache=cache,
                                   cache_len=cache_len, kv_planes=kv_planes,
-                                  keeps=keeps, decode_kernel=decode_kernel)
+                                  keeps=keeps, decode_kernel=decode_kernel,
+                                  append_valid=append_valid)
     # the reference's compiled layer fuses this residual add into the norm
     # after it and keeps the sum in float32 there; the residual stream
     # itself is stored rounded
     h2 = rmsnorm(x.float() + attn_out.float(), lp["ln2"], cfg.norm_eps).to(x.dtype)
     x = x + attn_out
+    if "moe" in lp:
+        ffn, _ = moe_apply(lp["moe"], h2, cfg, inference=cache is not None)
+        return x + ffn, new_kv
     return x + mlp_apply(lp["mlp"], h2, cfg.act), new_kv
 
 
 def run_stack(params, cfg, x, pos, cache=None, keeps=None, decode_kernel="fused"):
     """x: (B, S, d); pos: (B, S).  cache: None (plain causal forward) or a
-    serving cache dict (dense or bit-plane, see the module docstring) whose
-    rows are appended in place.  ``keeps``/``decode_kernel`` steer bit-plane
-    decode.  Returns the final hidden states (B, S, d)."""
+    serving cache dict (dense or bit-plane, ring or not, see the module
+    docstring) whose rows are appended in place; a ring chunk's cache
+    also carries ``'valid'``, the absolute end of the chunk's real tokens.
+    ``keeps``/``decode_kernel`` steer bit-plane decode.  Returns the final
+    hidden states (B, S, d)."""
     cache_len = None if cache is None else cache["len"]
     bitplane = cache is not None and "k_planes" in cache
+    ring = cache is not None and "pos" in cache
+    append_valid = None if cache is None else cache.get("valid")
     kn, vn = ("k_planes", "v_planes") if bitplane else ("k", "v")
     kv_planes = cache.get("planes") if bitplane else None
     for i in range(cfg.n_layers):
-        kv = None if cache is None else (cache[kn][i], cache[vn][i])
+        kv = None
+        if cache is not None:
+            kv = (cache[kn][i], cache[vn][i]) + ((cache["pos"][i],) if ring else ())
         x, _ = block_apply(layer_slice(params["layers"], i), x, cfg, pos=pos,
                            cache=kv, cache_len=cache_len, kv_planes=kv_planes,
-                           keeps=keeps, decode_kernel=decode_kernel)
+                           keeps=keeps, decode_kernel=decode_kernel,
+                           append_valid=append_valid)
     return x
 
 
@@ -146,13 +168,21 @@ def lm_prefill_chunk(params, cfg, tokens, cache, slot: int, start: int,
     tokens: (1, C) int — a power-of-two bucket; a ragged final chunk is
     right-padded (its pad sits after every real token, so causality keeps
     it out of every real row).  Rows [start, start + C) of ``slot`` are
-    written in place; the chunk attends to the slot's rows [0, start).
+    written in place; the chunk attends to the slot's rows [0, start).  A
+    ring cache (``'pos'``) takes the ring chunk append instead: the real
+    tokens land at slots ``p % window`` (the pad is never written, so it
+    cannot clobber older in-window entries) and the chunk attends over the
+    ring's old entries and itself; the serving stack caps the chunk at the
+    window.
     Returns (logits (1, Vpad) float32 at chunk index ``last_idx``, cache).
     """
     bitplane = "k_planes" in cache
     kn, vn, slot_ax = ("k_planes", "v_planes", 2) if bitplane else ("k", "v", 1)
     sub = {kn: cache[kn].narrow(slot_ax, slot, 1),
            vn: cache[vn].narrow(slot_ax, slot, 1), "len": int(start)}
+    if "pos" in cache:
+        sub["pos"] = cache["pos"].narrow(1, slot, 1)
+        sub["valid"] = int(start) + int(last_idx) + 1
     x = embed_apply(params["embed"], tokens)
     c = x.shape[1]
     pos = start + torch.arange(c, dtype=torch.int32, device=x.device)[None]
@@ -181,19 +211,62 @@ def lm_decode(params, cfg, token, cache, keeps=None, decode_kernel="fused"):
 
 def init_decode_cache(cfg, batch: int, max_len: int, device,
                       dtype=None) -> dict:
-    """Zeroed dense serving cache (full attention only)."""
-    if 0 < cfg.attn_window < max_len or cfg.decode_staging > 0:
+    """Zeroed dense serving cache.  A sliding-window config gets a ring of
+    the window's size (the cache for a ``max_len`` context is bounded by
+    the window) with its ``'pos'`` plane at -1 (unfilled)."""
+    ring = 0 < cfg.attn_window < max_len
+    if not ring and cfg.decode_staging > 0:
         raise NotImplementedError(
-            "ring and staged decode caches are not ported yet: they come with "
-            "the 'ring and sharded backends' and 'rest of serving' slices "
-            "(ROADMAP queue 1)")
+            "staged decode caches are not ported yet: they come with the "
+            "'rest of serving' slice (ROADMAP queue 1)")
     dtype = dtype or pdtype(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {
+    s_cache = cfg.attn_window if ring else max_len
+    shape = (cfg.n_layers, batch, s_cache, cfg.n_kv_heads, cfg.head_dim)
+    cache = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "len": torch.zeros((), dtype=torch.int32, device=device),
     }
+    if ring:
+        cache["pos"] = torch.full((cfg.n_layers, batch, s_cache), -1,
+                                  dtype=torch.int32, device=device)
+    return cache
+
+
+def ring_cache_from_prefill(cache: dict, cfg, max_len: int) -> dict:
+    """A full-length prefill cache {'k','v','len'} made ready for decode up
+    to ``max_len`` tokens of context (reference
+    ``ring_cache_from_prefill``): a sliding-window config gets a ring of
+    the window's size holding the last ``window`` prefill tokens at slots
+    ``pos % window``; a full-attention one gets its sequence axis padded
+    with zero rows (never cut)."""
+    s = cache["k"].shape[2]
+    w = cfg.attn_window
+    if not (0 < w < max_len):
+        if cfg.decode_staging > 0:
+            raise NotImplementedError(
+                "staged decode caches are not ported yet: they come with the "
+                "'rest of serving' slice (ROADMAP queue 1)")
+        out = dict(cache)
+        for name in ("k", "v"):
+            if s < max_len:
+                out[name] = torch.nn.functional.pad(cache[name], (0, 0, 0, 0, 0, max_len - s))
+        return out
+    keep = min(s, w)
+    ln = int(cache["len"])
+    abs_pos = ln - keep + torch.arange(keep, dtype=torch.int32, device=cache["k"].device)
+    slots = (abs_pos % w).long()
+    out = {"len": cache["len"]}
+    for name in ("k", "v"):
+        tail = cache[name][:, :, s - keep:]
+        ring = tail.new_zeros(tail.shape[:2] + (w,) + tail.shape[3:])
+        ring[:, :, slots] = tail
+        out[name] = ring
+    l, b = cache["k"].shape[:2]
+    pos = torch.full((l, b, w), -1, dtype=torch.int32, device=cache["k"].device)
+    pos[:, :, slots] = abs_pos
+    out["pos"] = pos
+    return out
 
 
 def bitplane_cache_from_dense(cache: dict, page_tokens: int = 16,

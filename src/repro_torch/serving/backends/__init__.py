@@ -1,31 +1,29 @@
 """Memory-tier backends behind one serving API.
 
 ``EngineConfig.backend`` selects the policy; :func:`make_backend` is the
-only constructor the scheduler uses.  The port has the paged tier; the ring
-and sharded tiers of the reference come with a later slice.
+only constructor the scheduler uses: ``"paged"`` (one compressed paged
+tier), ``"sharded"`` (per-shard tiers, pages routed by KV-head or sequence
+ownership) and ``"ring"`` (per-slot sliding-window rings).
 """
 
 from repro_torch.serving.backends.base import KVBackend, MemTier, SlotState  # noqa: F401
 from repro_torch.serving.backends.paged import PagedBackend
+from repro_torch.serving.backends.ring import RingBackend
+from repro_torch.serving.backends.sharded import ShardedBackend
 
-BACKENDS = {PagedBackend.name: PagedBackend}
+BACKENDS = {
+    PagedBackend.name: PagedBackend,
+    ShardedBackend.name: ShardedBackend,
+    RingBackend.name: RingBackend,
+}
 
-#: backends the reference has that the port does not serve yet
-_LATER = ("ring", "sharded")
-
-__all__ = ["BACKENDS", "KVBackend", "MemTier", "PagedBackend", "SlotState",
-           "make_backend"]
+__all__ = ["BACKENDS", "KVBackend", "MemTier", "PagedBackend", "RingBackend",
+           "ShardedBackend", "SlotState", "make_backend"]
 
 
 def make_backend(model, cfg, device, controller=None, stats=None,
                  telemetry=None) -> KVBackend:
     """Build the memory-tier backend ``cfg.backend`` names."""
-    if cfg.backend in _LATER:
-        raise NotImplementedError(
-            f"backend={cfg.backend!r} is not ported yet: the ring and sharded "
-            f"tiers come with the 'ring and sharded backends' slice (ROADMAP "
-            f"queue 1); the port serves backend='paged'"
-        )
     try:
         cls = BACKENDS[cfg.backend]
     except KeyError:

@@ -1,6 +1,17 @@
 """``KVBackend``: the protocol between the continuous-batching scheduler
-and the memory tier (port of the reference's ``serving/backends/base.py``,
-single-device paged tier).
+and the memory tier (port of the reference's ``serving/backends/base.py``).
+
+The base class is the single-tier, full-attention paged tier; subclasses
+override the routing and layout hooks (``_build_tiers``, ``_seq_key``,
+``_page_targets``, ``_device_rows``, ``_first_storable_token``,
+``_expire_dead_pages``, ``_can_reactivate``, ``_device_page``,
+``check_model`` ...), never the scheduler-facing surface:
+
+* ``PagedBackend``  — one device, one compressed paged tier;
+* ``ShardedBackend`` — per-shard compressed tiers and lane engines, pages
+  routed by KV-head ownership or block-cyclically over the sequence;
+* ``RingBackend``   — per-slot sliding-window ring caches (Mixtral-family
+  configs), pages retired as they slide out of the window.
 
 Protocol surface (what the scheduler calls — everything else is private):
 
@@ -38,15 +49,15 @@ the layer weights block-compressed behind the controller and every step
 that computes streams one weight pass through the lane engine; compute
 keeps the resident weights, as in the reference.
 
-Not in this slice (each raises where it is asked for): the ring and sharded
-backends and staged decode caches.
+Staged decode caches (``decode_staging > 0``) are not ported: they raise
+in :meth:`KVBackend.check_model`.
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +73,7 @@ from repro_torch.core.quantization import (
 from repro_torch.kernels.bitplane.ops import pack_kv_into, unpack_kv_pair
 from repro_torch.kernels.paged_attention.ops import unpack_kv
 from repro_torch.memctl import CompressionEngineRuntime, Job, JobClass
+from repro_torch.memctl.runtime import aggregate_engine_reports
 from repro_torch.models.transformer import bitplane_cache_from_dense, split_layer_params
 from repro_torch.serving.kv_cache import (
     PAGE_TOKENS,
@@ -99,6 +111,9 @@ class SlotState:
     #: ladder plane count per page index (consulted by queued write jobs at
     #: service time, so evicted pages keep their precision)
     page_planes: Dict[int, int] = dataclasses.field(default_factory=dict)
+    #: first page not yet fully slid out of the attention window (ring
+    #: tiers; always 0 for full-attention backends)
+    live_from_page: int = 0
     #: last plane-map row pushed to the device cache (bit-plane layout) —
     #: lets per-token re-syncs skip the device write when nothing changed
     device_row: Optional[np.ndarray] = None
@@ -113,7 +128,8 @@ class SlotState:
     #: number of FULL prompt pages (== len(prefix_hashes))
     prompt_pages: int = 0
     #: pages [bound_from_page, shared_pages) were adopted through a prefix
-    #: match and hold a store refcount each, released at retire
+    #: match and hold a store refcount each, released at retire, or as a
+    #: ring window slides past them (advancing bound_from_page)
     shared_pages: int = 0
     bound_from_page: int = 0
 
@@ -215,8 +231,21 @@ def make_fetch_job(store: CompressedKVStore, stats: Dict[str, float],
                seq_id=seq_key, size_fn=size)
 
 
+def page_part(page, cols: Optional[slice]):
+    """One tier's part of a page object: the whole page (``cols`` None) or
+    its channels ``cols`` (an :class:`EncodedKV`'s channel encoding, a raw
+    page's columns)."""
+    if cols is None:
+        return page
+    if hasattr(page, "columns"):
+        return page.columns(cols.start, cols.stop)
+    return page[:, cols]
+
+
 class KVBackend(abc.ABC):
-    """Single-tier, full-attention, paged implementation of the protocol."""
+    """Base implementation of the protocol: single-tier, full-attention,
+    paged.  Subclasses override the routing and layout hooks, never the
+    scheduler-facing surface."""
 
     name = "?"
 
@@ -233,9 +262,7 @@ class KVBackend(abc.ABC):
         for key in BACKEND_STATS:
             self.stats.setdefault(key, 0)
         self.telemetry = telemetry if telemetry is not None else NULL_COLLECTOR
-        self.tiers: List[MemTier] = [MemTier(cfg, controller,
-                                             cfg.max_stored_bytes,
-                                             telemetry=self.telemetry)]
+        self.tiers: List[MemTier] = self._build_tiers(controller)
         self._cache = None
         self._slots: Dict[int, SlotState] = {}
         #: device page transforms (one ``encode_kv`` each): page-writing
@@ -264,21 +291,24 @@ class KVBackend(abc.ABC):
                 f"ssm/hybrid/encdec: the SSM family serves through "
                 f"repro_torch.launch's prefill and serve steps)"
             )
-        if mcfg.family != "dense":
+        if mcfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"the port serves the dense family; {mcfg.family!r} comes "
-                f"with the 'other model families' slice (ROADMAP queue 1)"
+                f"the port serves the dense and moe families; {mcfg.family!r} "
+                f"comes with the 'other model families' slice (ROADMAP queue 1)"
             )
         if 0 < mcfg.attn_window < cfg.max_ctx:
             raise NotImplementedError(
-                "sliding-window ring caches need backend='ring', which comes "
-                "with the 'ring and sharded backends' slice (ROADMAP queue 1)"
+                "sliding-window ring caches need backend='ring'"
             )
         if mcfg.decode_staging > 0:
             raise NotImplementedError(
                 f"decode_staging={mcfg.decode_staging}: staged decode caches "
                 f"come with the 'rest of serving' slice (ROADMAP queue 1)"
             )
+        cls.check_device_kv(mcfg, cfg)
+
+    @classmethod
+    def check_device_kv(cls, mcfg, cfg) -> None:
         if cfg.device_kv not in ("dense", "bitplane"):
             raise ValueError(
                 f"device_kv must be 'dense' or 'bitplane', got "
@@ -289,6 +319,21 @@ class KVBackend(abc.ABC):
                 f"bit-plane packing needs head_dim % 8 == 0, got "
                 f"{mcfg.head_dim}"
             )
+
+    # ----------------------------------------------------------------- tiers
+    def _build_tiers(self, controller) -> List[MemTier]:
+        return [MemTier(self.cfg, controller, self.cfg.max_stored_bytes,
+                        telemetry=self.telemetry)]
+
+    def _seq_key(self, tier: MemTier, rid: int):
+        """Cancellation scope for jobs of request ``rid`` on ``tier``
+        (sharded backends scope it per shard)."""
+        return rid
+
+    def _page_targets(self, key: PageKey) -> List[Tuple[MemTier, Optional[slice]]]:
+        """Which tiers own (a channel slice of) this page: [(tier, cols)];
+        ``cols`` None is the whole page."""
+        return [(self.tiers[0], None)]
 
     # -------------------------------------------------------- weight streaming
     def attach_weights(self, params) -> None:
@@ -355,7 +400,31 @@ class KVBackend(abc.ABC):
                                              device=self.device)
 
     def max_prefill_bucket(self) -> int:
+        """Largest prefill chunk the cache layout accepts (ring caches cap
+        it at the window so a chunk's slots never collide)."""
         return self.cfg.max_ctx
+
+    def _device_rows(self, t0: int, t1: int):
+        """Cache sequence-axis rows holding absolute tokens [t0, t1): a
+        slice, or an index array where they wrap around a ring."""
+        return slice(t0, t1)
+
+    def _take_rows(self, t: torch.Tensor, dim: int, t0: int, t1: int) -> torch.Tensor:
+        """Tokens [t0, t1) of a cache tensor along its sequence ``dim``: a
+        view for a slice of rows, a copy for wrapped ring rows."""
+        rows = self._device_rows(t0, t1)
+        if isinstance(rows, slice):
+            return t.narrow(dim, rows.start, rows.stop - rows.start)
+        return t.index_select(dim, torch.as_tensor(rows, device=t.device))
+
+    def _row_runs(self, t0: int, t1: int) -> list:
+        """Tokens [t0, t1) as runs of consecutive cache rows: (first row,
+        offset into the tokens, length) each."""
+        rows = self._device_rows(t0, t1)
+        if isinstance(rows, slice):
+            return [(rows.start, 0, t1 - t0)]
+        cuts = [0] + [i for i in range(1, len(rows)) if rows[i] != rows[i - 1] + 1] + [len(rows)]
+        return [(int(rows[a]), a, b - a) for a, b in zip(cuts, cuts[1:])]
 
     def stored_layers(self) -> int:
         n_layers = self.mcfg.n_layers
@@ -376,11 +445,11 @@ class KVBackend(abc.ABC):
         if self.device_kv == "bitplane":
             # (L, bits, B, T, Hkv, hd8) -> (bits, layers, t, Hkv, hd8) views
             # of each stream, unpacked together -> (2, layers, t, Hkv, hd)
-            kp, vp = (self._cache[name][layers, :, slot_id, t0:t1].movedim(1, 0)
-                      for name in ("k_planes", "v_planes"))
+            kp, vp = (self._take_rows(self._cache[name][layers, :, slot_id], 2, t0, t1)
+                      .movedim(1, 0) for name in ("k_planes", "v_planes"))
             dense = unpack_kv_pair(kp, vp, kp.shape[0], kp.shape[0])
         else:
-            dense = torch.stack([self._cache[name][layers, slot_id, t0:t1]
+            dense = torch.stack([self._take_rows(self._cache[name][layers, slot_id], 1, t0, t1)
                                  for name in ("k", "v")])
         return dense.reshape(2, -1, t, dense.shape[-2] * dense.shape[-1]) \
             .transpose(0, 1).view(torch.int16)
@@ -418,7 +487,7 @@ class KVBackend(abc.ABC):
             self._release_prefix(st)
         cancelled = 0
         for tier in self.tiers:
-            cancelled += tier.engine.cancel_seq(rid)
+            cancelled += tier.engine.cancel_seq(self._seq_key(tier, rid))
             # shared (px:) pages are untouched: drop_sequence matches the
             # integer rid only, and the prefix cache outlives its writers
             tier.store.drop_sequence(rid)
@@ -439,13 +508,15 @@ class KVBackend(abc.ABC):
         return PageKey(st.rid, layer, page_idx, stream)
 
     def _prefix_adopt_lo(self, m: int) -> int:
-        """First device row a slot adopting an ``m``-token prefix must
-        rebuild: 0 on the paged tier, whose slot holds every row."""
+        """First token a slot adopting an ``m``-token prefix must rebuild:
+        0 on the paged tier, whose slot holds every row (a ring window
+        reaches back only ``window`` tokens)."""
         return 0
 
     def _prefix_register_ok(self, st: SlotState, end: int) -> bool:
         """Whether a finished prefill can be indexed for sharing: always on
-        the paged tier, whose slot still holds the whole prompt."""
+        the paged tier, whose slot still holds the whole prompt (a ring
+        only while the whole prompt is inside its window)."""
         return True
 
     def match_prefix(self, slot_id: int, prompt) -> int:
@@ -487,6 +558,7 @@ class KVBackend(abc.ABC):
             return 0
         self._adopt_prefix_rows(slot_id, entry, lo, m)
         st.stored_tokens = m
+        st.live_from_page = bind_from
         st.bound_from_page = bind_from
         st.shared_pages = m_pages
         deduped = 0
@@ -494,7 +566,7 @@ class KVBackend(abc.ABC):
             for li in range(self.stored_layers()):
                 for stream in ("k", "v"):
                     key = self._slot_key(st, li, p, stream)
-                    for tier in self.tiers:
+                    for tier, _cols in self._page_targets(key):
                         tier.store.retain_page(key)
                         deduped += tier.store.page_stored_bytes(key)
         self.stats["prefix_requests_matched"] += 1
@@ -507,14 +579,15 @@ class KVBackend(abc.ABC):
 
     def _first_missing_prefix_page(self, hashes: List[str], p0: int,
                                    p1: int) -> Optional[int]:
-        """First page in [p0, p1) not resident on every tier (a queued but
-        unserviced donor write counts as missing: there is no compressed
-        copy to bind yet), or None when all are resident."""
+        """First page in [p0, p1) not resident on every owning tier (a
+        queued but unserviced donor write counts as missing: there is no
+        compressed copy to bind yet), or None when all are resident."""
         for p in range(p0, p1):
             for li in range(self.stored_layers()):
                 for stream in ("k", "v"):
                     key = PageKey(prefix_seq_id(hashes[p]), li, p, stream)
-                    if not all(tier.store.contains(key) for tier in self.tiers):
+                    if not all(tier.store.contains(key)
+                               for tier, _cols in self._page_targets(key)):
                         return p
         return None
 
@@ -531,14 +604,17 @@ class KVBackend(abc.ABC):
         hkv, hd = self.mcfg.n_kv_heads, self.mcfg.head_dim
         k, v = (x[:, o:o + t].view(torch.bfloat16).reshape(x.shape[0], t, hkv, hd)
                 for x in (entry.k, entry.v))
-        if self.device_kv == "bitplane":
-            # (L, bits, B, S, Hkv, hd8) -> the slot's (bits, L, S, Hkv, hd8)
-            kp, vp = (cache[name][:, :, slot_id].movedim(1, 0)
-                      for name in ("k_planes", "v_planes"))
-            pack_kv_into(k, v, kp, vp, lo)
-            return
-        cache["k"][:, slot_id, lo:m] = k
-        cache["v"][:, slot_id, lo:m] = v
+        # (L, bits, B, S, Hkv, hd8) -> the slot's (bits, L, S, Hkv, hd8)
+        kp, vp = ((cache[name][:, :, slot_id].movedim(1, 0)
+                   for name in ("k_planes", "v_planes"))
+                  if self.device_kv == "bitplane" else (None, None))
+        for row, off, n in self._row_runs(lo, m):
+            kr, vr = k[:, off:off + n], v[:, off:off + n]
+            if kp is not None:
+                pack_kv_into(kr, vr, kp, vp, row)
+            else:
+                cache["k"][:, slot_id, row:row + n] = kr
+                cache["v"][:, slot_id, row:row + n] = vr
 
     def _register_prefix(self, slot_id: int, end: int) -> None:
         """Index a finished prefill's full prompt pages for future sharing,
@@ -563,12 +639,13 @@ class KVBackend(abc.ABC):
         ))
 
     def _release_prefix(self, st: SlotState) -> None:
-        """Drop this slot's remaining shared-page bindings."""
+        """Drop this slot's remaining shared-page bindings (retire, or a
+        ring window sliding past them)."""
         for p in range(st.bound_from_page, st.shared_pages):
             for li in range(self.stored_layers()):
                 for stream in ("k", "v"):
                     key = self._slot_key(st, li, p, stream)
-                    for tier in self.tiers:
+                    for tier, _cols in self._page_targets(key):
                         tier.store.release_page(key)
         st.bound_from_page = st.shared_pages
 
@@ -583,7 +660,12 @@ class KVBackend(abc.ABC):
         if not self.cfg.store_kv_compressed:
             return
         st = self._slots[slot_id]
-        lo = st.stored_tokens
+        self._expire_dead_pages(st, end)
+        lo = max(st.stored_tokens, self._first_storable_token(end))
+        if lo > st.stored_tokens:
+            # a ring skipped a dead prompt prefix entirely: those pages were
+            # never stored, so fetch accounting must not range over them
+            st.live_from_page = max(st.live_from_page, lo // PAGE_TOKENS)
         hi = end if final else (end // PAGE_TOKENS) * PAGE_TOKENS
         if hi > lo:
             self._write_span(slot_id, lo, hi)
@@ -601,11 +683,32 @@ class KVBackend(abc.ABC):
         if not self.cfg.store_kv_compressed:
             return
         st = self._slots[slot_id]
+        self._expire_dead_pages(st, ln)
         if ln % PAGE_TOKENS == 0:  # a decode page just filled
             self._write_span(slot_id, ln - PAGE_TOKENS, ln)
             st.stored_tokens = ln
             self._assign_ladder_planes(slot_id, ln)
-        self._account_step_fetch(slot_id)
+        self._account_step_fetch(slot_id, ln)
+
+    def _first_storable_token(self, end: int) -> int:
+        """First token whose page may still be written (ring backends skip
+        pages already outside the window; full attention stores from 0)."""
+        return 0
+
+    def _expire_dead_pages(self, st: SlotState, ln: int) -> None:
+        """Drop pages that can never be read again (ring only; a no-op
+        here)."""
+
+    def _can_reactivate(self, st: SlotState, page_idx: int, ln: int) -> bool:
+        """Whether the device working set still holds every row of this
+        page (ring backends lose rows as the window slides)."""
+        return True
+
+    def _live_page_range(self, st: SlotState) -> Tuple[int, int]:
+        """[first, last) stored pages fetch accounting ranges over, from the
+        stored-tokens watermark (a growing decode tail never stored is not
+        fetched)."""
+        return st.live_from_page, -(-st.stored_tokens // PAGE_TOKENS)
 
     def _write_span(self, slot_id: int, t0: int, t1: int) -> None:
         """Page-split device KV rows [t0, t1) (t0 page-aligned; a ragged t1
@@ -626,27 +729,32 @@ class KVBackend(abc.ABC):
 
     def _submit_page_write(self, st: SlotState, key: PageKey, page,
                            valid: int,
-                           klass: JobClass = JobClass.KV_WRITE) -> None:
-        """Queue one page's compress-and-store.  The page is transformed at
+                           klass: JobClass = JobClass.KV_WRITE,
+                           targets=None) -> None:
+        """Queue one page's compress-and-store on each owning tier (its
+        part of the page: :func:`page_part`).  The page is transformed at
         submit time (the token range is append-only); the codec, the store
         put — and its charged kv_write — happen when the engine services
         the job, at the ladder planes assigned by then.  ``valid`` <
         PAGE_TOKENS marks an exact-length tail page; the job is sized by its
         pad-free logical bytes.  ``klass=BACKGROUND`` is a re-activation of
-        an evicted page."""
-        tier = self.tiers[0]
+        an evicted page on ``targets`` (default: every owning tier)."""
+        if targets is None:
+            targets = self._page_targets(key)
+        for tier, cols in targets:
+            part = page_part(page, cols)
 
-        def fn(store=tier.store):
-            store.put_page(key, page, planes=st.page_planes.get(key.page_idx),
-                           valid_tokens=valid)
-            if klass == JobClass.BACKGROUND:
-                self.stats["kv_reactivations"] += 1
+            def fn(store=tier.store, part=part):
+                store.put_page(key, part, planes=st.page_planes.get(key.page_idx),
+                               valid_tokens=valid)
+                if klass == JobClass.BACKGROUND:
+                    self.stats["kv_reactivations"] += 1
 
-        nbytes = valid * page.shape[1] * tier.store.spec.bits // 8
-        tier.engine.submit(Job(klass, nbytes, fn=fn, key=key.astuple(),
-                               seq_id=st.rid))
+            nbytes = valid * part.shape[1] * tier.store.spec.bits // 8
+            tier.engine.submit(Job(klass, nbytes, fn=fn, key=key.astuple(),
+                                   seq_id=self._seq_key(tier, st.rid)))
 
-    def _account_step_fetch(self, slot_id: int) -> None:
+    def _account_step_fetch(self, slot_id: int, ln: int) -> None:
         """Queue this decode step's KV traffic for one slot as
         decode-critical fetch jobs: every stored-resident page at its ladder
         planes, sized at SERVICE time.  Evicted pages queue a background
@@ -654,50 +762,65 @@ class KVBackend(abc.ABC):
         queued are skipped (their ground truth is still the device working
         set)."""
         st = self._slots[slot_id]
-        tier = self.tiers[0]
-        n_pages = -(-st.stored_tokens // PAGE_TOKENS)
+        rid = st.rid
+        p0, n_pages = self._live_page_range(st)
         for li in range(self.stored_layers()):
             for stream in ("k", "v"):
-                for p in range(n_pages):
+                for p in range(p0, n_pages):
                     key = self._slot_key(st, li, p, stream)
                     # a shared page is fetched at THIS holder's ladder
                     # assignment (the store's hint is the last re-ranker's)
-                    keep_fn = (None if key.seq_id == st.rid
+                    keep_fn = (None if key.seq_id == rid
                                else lambda p=p: st.page_planes.get(p))
                     kt = key.astuple()
-                    if tier.store.contains(key):
-                        tier.engine.submit(make_fetch_job(
-                            tier.store, self.stats, key, st.rid,
-                            device_kv=self.device_kv, telemetry=self.telemetry,
-                            rid=st.rid, keep_fn=keep_fn,
-                        ))
-                    elif (tier.engine.pending(kt, JobClass.KV_WRITE)
-                          or tier.engine.pending(kt, JobClass.BACKGROUND)):
-                        self.stats["kv_fetch_deferrals"] += 1
-                    else:
-                        self._reactivate(slot_id, key)
+                    reactivate = []
+                    for tier, cols in self._page_targets(key):
+                        if tier.store.contains(key):
+                            tier.engine.submit(make_fetch_job(
+                                tier.store, self.stats, key, self._seq_key(tier, rid),
+                                device_kv=self.device_kv, telemetry=self.telemetry,
+                                rid=rid, keep_fn=keep_fn,
+                            ))
+                        elif (tier.engine.pending(kt, JobClass.KV_WRITE)
+                              or tier.engine.pending(kt, JobClass.BACKGROUND)):
+                            self.stats["kv_fetch_deferrals"] += 1
+                        elif self._can_reactivate(st, p, ln):
+                            reactivate.append((tier, cols))
+                        else:
+                            # ring: the window slid over part of the page's
+                            # device rows; nothing left to re-compress, and
+                            # the page dies shortly anyway
+                            self.stats["kv_fetch_misses"] += 1
+                    if reactivate:
+                        self._reactivate(slot_id, key, reactivate)
 
-    def _reactivate(self, slot_id: int, key: PageKey) -> None:
+    def _reactivate(self, slot_id: int, key: PageKey, targets) -> None:
         """An evicted page is needed again: queue a background re-compress
-        from the device working set at the plane count the ladder last
-        assigned (charged once, when the engine services it).  A ragged
-        stored tail re-activates at its exact valid length."""
+        from the device working set on ``targets`` at the plane count the
+        ladder last assigned (charged once per tier, when the engine
+        services it).  A ragged stored tail re-activates at its exact valid
+        length."""
         st = self._slots[slot_id]
         t0 = key.page_idx * PAGE_TOKENS
         t1 = min(t0 + PAGE_TOKENS, st.stored_tokens)
         bits = self.slot_kv_bits(slot_id, t0, t1, slice(key.layer, key.layer + 1))
         (page,), (valid,) = self.encode_span(bits[0, ("k", "v").index(key.stream)])
         self.page_encodes["reactivations"] += 1
-        self._submit_page_write(st, key, page, valid, JobClass.BACKGROUND)
+        self._submit_page_write(st, key, page, valid, JobClass.BACKGROUND, targets)
 
     # ---------------------------------------------------------------- ladder
     def _device_k_rows(self, slot_id: int, t0: int, t1: int) -> torch.Tensor:
         """Last-layer device keys for tokens [t0, t1), (t, Hkv, hd) bf16 —
         the quest ranking input, identical between layouts."""
         if self.device_kv != "bitplane":
-            return self._cache["k"][-1, slot_id, t0:t1]
-        pl = self._cache["k_planes"][-1][:, slot_id, t0:t1]
+            return self._take_rows(self._cache["k"][-1, slot_id], 0, t0, t1)
+        pl = self._take_rows(self._cache["k_planes"][-1][:, slot_id], 1, t0, t1)
         return unpack_kv(pl, pl.shape[0], pl.shape[0])
+
+    def _device_page(self, page_idx: int) -> int:
+        """Device plane-map column holding this absolute page (ring layouts
+        fold it modulo the window's page count)."""
+        return page_idx
 
     def _set_device_row(self, slot_id: int, st: SlotState,
                         row: np.ndarray) -> None:
@@ -715,17 +838,19 @@ class KVBackend(abc.ABC):
         """Publish the slot's ladder assignment into the device plane map,
         so the NEXT decode step's kernel reads exactly the planes the
         controller will charge.  Pages without an assignment (the growing
-        tail) stay at full precision."""
+        tail, a dead ring prefix already pruned from ``page_planes``) stay
+        at full precision."""
         if self.device_kv != "bitplane":
             return
         bits = self.tiers[0].store.spec.bits
         row = np.full(self._cache["planes"].shape[1], bits, np.int32)
         for p, keep in st.page_planes.items():
-            row[p] = keep
+            if p >= st.live_from_page:
+                row[self._device_page(p)] = keep
         self._set_device_row(slot_id, st, row)
 
     def _assign_ladder_planes(self, slot_id: int, ln: int) -> None:
-        """Re-rank this slot's full pages against the newest query proxy
+        """Re-rank this slot's live full pages against the newest query proxy
         (the last-layer key at ln-1) and record the ladder's plane count on
         every stored page (all layers share the last layer's ranking).  A
         ragged stored tail page keeps full precision until it fills.  The
@@ -736,25 +861,27 @@ class KVBackend(abc.ABC):
             return
         st = self._slots[slot_id]
         n_pages = ln // PAGE_TOKENS
-        if n_pages <= 0:
+        p0 = st.live_from_page
+        if n_pages <= p0:
             return
-        k_last = self._device_k_rows(slot_id, 0, n_pages * PAGE_TOKENS)
+        k_last = self._device_k_rows(slot_id, p0 * PAGE_TOKENS, n_pages * PAGE_TOKENS)
         kmin, kmax = page_minmax(k_last, PAGE_TOKENS)
         q_proxy = self._device_k_rows(slot_id, ln - 1, ln)[0]
         planes = assign_page_precision(quest_scores(q_proxy, kmin, kmax), ladder)
         mean_planes = planes.cpu().numpy().astype(np.float32).mean(axis=1)
         spec_bits = self.tiers[0].store.spec.bits
         rung_planes = sorted({min(spec_bits, max(1, p)) for _, p in ladder.rungs})
-        tier = self.tiers[0]
-        for p in range(n_pages):
-            m = float(mean_planes[p])
+        for i, p in enumerate(range(p0, n_pages)):
+            m = float(mean_planes[i])
             keep = min(rung_planes, key=lambda r: (abs(r - m), -r))
             st.page_planes[p] = keep
             for li in range(self.stored_layers()):
                 for stream in ("k", "v"):
-                    tier.store.set_planes(self._slot_key(st, li, p, stream), keep)
+                    key = self._slot_key(st, li, p, stream)
+                    for tier, _cols in self._page_targets(key):
+                        tier.store.set_planes(key, keep)
         if self.telemetry.enabled:
-            self.telemetry.on_ladder_rerank(st.rid, n_pages)
+            self.telemetry.on_ladder_rerank(st.rid, n_pages - p0)
         self._push_device_planes(slot_id, st)
 
     # ---------------------------------------------------------------- engine
@@ -793,20 +920,28 @@ class KVBackend(abc.ABC):
 
     # ------------------------------------------------------------- reporting
     def note_peaks(self) -> None:
-        fp = self.tiers[0].store.footprint()
+        fps = [tier.store.footprint() for tier in self.tiers]
         self.stats["kv_peak_stored_bytes"] = max(
-            self.stats["kv_peak_stored_bytes"], fp["stored_bytes"])
+            self.stats["kv_peak_stored_bytes"], sum(fp["stored_bytes"] for fp in fps))
         self.stats["kv_peak_logical_bytes"] = max(
-            self.stats["kv_peak_logical_bytes"], fp["logical_bytes"])
+            self.stats["kv_peak_logical_bytes"], sum(fp["logical_bytes"] for fp in fps))
 
     def report(self) -> dict:
         """Memory-tier half of the scheduler's report: pad-free logical vs
         stored/fetched bytes, eviction counters, the device bytes the decode
-        kernels read, and the engine-limited numbers."""
-        tier = self.tiers[0]
-        w_log, w_phys = tier.controller.stats.kind_bytes("kv_write")
-        r_log, r_phys = tier.controller.stats.kind_bytes("kv_read")
-        fp = tier.store.footprint()
+        kernels read, and the engine-limited numbers, summed over the tiers
+        (one tier's engine report passes through unchanged)."""
+        w_log = w_phys = r_log = r_phys = r_dev = 0
+        evictions = evicted_bytes = resident = 0
+        for tier in self.tiers:
+            wl, wp = tier.controller.stats.kind_bytes("kv_write")
+            rl, rp = tier.controller.stats.kind_bytes("kv_read")
+            w_log, w_phys, r_log, r_phys = w_log + wl, w_phys + wp, r_log + rl, r_phys + rp
+            r_dev += tier.controller.stats.kind_device_bytes("kv_read")
+            fp = tier.store.footprint()
+            evictions += fp["evictions"]
+            evicted_bytes += fp["evicted_bytes"]
+            resident += fp["stored_bytes"]
         s: dict = {
             "kv_logical_bytes": w_log,
             "kv_stored_bytes": w_phys,
@@ -822,14 +957,15 @@ class KVBackend(abc.ABC):
         # full-precision logical bytes
         s["device_kv"] = self.device_kv
         s["device_bytes_read"] = self.stats["device_bytes_read"]
-        s["kv_read_device_bytes"] = tier.controller.stats.kind_device_bytes("kv_read")
+        s["kv_read_device_bytes"] = r_dev
         if r_log:
             s["kv_device_bandwidth_saving"] = \
                 1 - self.stats["device_bytes_read"] / r_log
-        s["kv_evictions"] = fp["evictions"]
-        s["kv_evicted_bytes"] = fp["evicted_bytes"]
-        s["kv_resident_stored_bytes"] = fp["stored_bytes"]
-        er = tier.engine.report()
+        s["kv_evictions"] = evictions
+        s["kv_evicted_bytes"] = evicted_bytes
+        s["kv_resident_stored_bytes"] = resident
+        reports = [tier.engine.report() for tier in self.tiers]
+        er = reports[0] if len(reports) == 1 else aggregate_engine_reports(reports)
         s["engine"] = er
         s["engine_utilization"] = er["utilization"]
         s["engine_modeled_latency_ns"] = er["modeled_latency_ns"]
@@ -912,6 +1048,7 @@ class KVBackend(abc.ABC):
     # ------------------------------------------------------------ accessors
     @property
     def store(self) -> CompressedKVStore:
+        """Tier 0's store (a sharded backend has one per shard)."""
         return self.tiers[0].store
 
     @property

@@ -26,8 +26,11 @@ reference's ``serving/scheduler.py``, bucketed prefill).
   passes ``device="cpu"``; without a GPU and without that argument the
   scheduler raises instead of moving to the CPU.
 
-Not in this slice: ``prefill_mode="padded"`` and the ring/sharded
-backends — each raises where it is asked for.
+* **Backends.**  ``backend="paged"`` (one tier), ``"sharded"`` (per-shard
+  tiers) or ``"ring"`` (sliding-window configs: per-slot rings, prefill
+  chunks capped at the window).
+
+Not ported: ``prefill_mode="padded"``, which raises where it is asked for.
 """
 
 from __future__ import annotations
@@ -92,8 +95,11 @@ class EngineConfig:
     prefill_chunks_per_step: int = 1
     #: base sampling seed (temperature > 0 only)
     rng_seed: int = 0
-    #: memory-tier policy: only 'paged' is ported
+    #: memory-tier policy: 'paged' | 'sharded' | 'ring' (sliding-window
+    #: configs)
     backend: str = "paged"
+    #: shard count for backend='sharded' (shards=1 is bit-exact with paged)
+    shards: int = 2
     #: device KV layout: 'dense' bf16 rows, or 'bitplane' packed uint8
     #: planes read through the paged-attention kernels at the ladder's
     #: plane counts

@@ -13,6 +13,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -562,3 +563,102 @@ def test_prefix_launch_deltas_count_adoptions_and_snapshots():
     b["launches"]["bitplane_pack"] += 30  # a layer's pack too many
     with pytest.raises(AssertionError, match="one pack an adoption"):
         C.check_prefix_launch_deltas(a, b, 30)
+
+
+# ---------------------------------------------------------------------------
+# Phases 3s and 7 on the CPU: the sharded tier and the Mixtral ring, small
+# ---------------------------------------------------------------------------
+
+
+def test_sharded_phase_checks_pass_on_a_small_model(small):
+    """Phase 3s at the smoke size: 2 kv heads take the head route on 2
+    shards and, as 2 does not divide by 3, the sequence route on 3; tokens,
+    queued write bytes and the shards' byte sums are checked against a
+    paged run, as on the card."""
+    model, params = small
+    base = EngineConfig(max_batch=4, max_ctx=192, ladder=PrecisionLadder(C.LADDER),
+                        codec="lz4", device_kv="bitplane", decode_kernel="fused",
+                        backend="paged")
+    sched = ContinuousScheduler(model, params, base, device="cpu")
+    reqs = _requests(model.cfg.vocab)
+    with C.write_job_ledger() as ledger:
+        for r in reqs:
+            sched.submit(r)
+        sched.run_until_drained()
+    out = C.run_sharded_phase(torch, model, params, reqs, ledger,
+                              requests=lambda: _requests(model.cfg.vocab), base=base,
+                              runs=((2, "head"), (3, "seq")))
+    assert {n: o["route"] for n, o in out.items()} == {2: "head", 3: "seq"}
+    for o in out.values():
+        shards = o["rep"]["shards"]
+        assert o["rep"]["kv_logical_bytes"] == sum(s["kv_logical_bytes"] for s in shards)
+
+
+def test_sharded_phase_fails_when_tokens_differ(small):
+    model, params = small
+    base = EngineConfig(max_batch=4, max_ctx=192, codec="lz4", backend="paged")
+    reqs = _requests(model.cfg.vocab)
+    sched = ContinuousScheduler(model, params, base, device="cpu")
+    with C.write_job_ledger() as ledger:
+        for r in reqs:
+            sched.submit(r)
+        sched.run_until_drained()
+    reqs[1].output[2] += 1
+    with pytest.raises(AssertionError, match="greedy tokens differ"):
+        C.run_sharded_phase(torch, model, params, reqs, ledger,
+                            requests=lambda: _requests(model.cfg.vocab), base=base,
+                            runs=((2, "head"),))
+
+
+# Phase 7's trace cut to Mixtral SMOKE (window 64): prompts inside the
+# window, two crossing it while they decode, two starting beyond it
+SMALL_RING_PROMPTS = (24, 48, 60, 62, 80, 120)
+SMALL_RING_NEW = 24
+
+
+@pytest.fixture(scope="module")
+def ring_phase():
+    model, params = C.mixtral_model(torch, torch.device("cpu"), layers=2, smoke=True, window=64)
+    return C.run_ring_phase(torch, model, params, profile_steps=0, prompts=SMALL_RING_PROMPTS,
+                            new=SMALL_RING_NEW, max_batch=4, max_ctx=192)
+
+
+def _ring_snapshot(lens, w=64, layers=2, bits=16):
+    pos = C.ring_positions(torch, torch.device("cpu"), len(lens), w, lens)
+    return {"pos": pos[None].repeat(layers, 1, 1), "len": torch.tensor(lens),
+            "planes": torch.full((len(lens), w // C.PAGE), bits, dtype=torch.int32),
+            "live": [True] * len(lens)}
+
+
+@pytest.mark.parametrize("fault", [None, "position", "stale", "head"])
+def test_ring_snapshot_check_reads_positions_and_plane_map(fault):
+    """Phase 7's ring glue check: the pos plane must be the one the
+    lengths give, in every layer, and the plane map must read a keep in
+    every column and full precision at the ring head."""
+    model = SimpleNamespace(cfg=SimpleNamespace(attn_window=64))
+    snap = _ring_snapshot([43, 67, 79, 130])
+    snap["planes"][1, 2] = 8  # a ranked page away from slot 1's head column (67 % 64 // 16 = 0)
+    if fault == "position":
+        snap["pos"][1, 2, 5] += 64  # one layer's slot holds a dead position
+    elif fault == "stale":
+        snap["pos"][0, 0, 50] = 50  # past the length: a previous occupant's
+    elif fault == "head":
+        snap["planes"][3, 130 % 64 // C.PAGE] = 8
+    if fault is None:
+        C.check_ring_snapshot(torch, model, snap, (8, 12, 16))
+    else:
+        with pytest.raises(AssertionError, match="ring positions" if fault != "head"
+                           else "plane map"):
+            C.check_ring_snapshot(torch, model, snap, (8, 12, 16))
+
+
+def test_ring_phase_checks_pass_on_the_smoke_model(ring_phase):
+    runs = ring_phase["runs"]
+    for run in runs.values():
+        assert run["retired"] > 0 and run["rep"]["kv_evictions"] == 0
+        assert all(len(r.output) == SMALL_RING_NEW for r in run["reqs"])
+        # the 120-token prompt's first stored page: its chunks of 64 stored
+        # pages 0-3 before the window slid past them (retired since)
+        assert run["first_page"][5] == 0
+    same, total = ring_phase["agree"]
+    assert same == total  # on the CPU both routes take the plain attention

@@ -687,3 +687,138 @@ def test_cuda_attach_weights_equals_host_copies():
         for e in card.layer(li).entries:
             assert card.controller.weight_tensor(e.key).segments == \
                 host.controller.weight_tensor(e.key).segments
+
+
+# ---------------------------------------------------------------------------
+# The ring: flash attention with key positions, the paged kernels over a
+# ring mask, a Mixtral ring step through the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,w,filled,hp,hkv,hd,window", [
+    (512, 4096, 6096, 32, 8, 128, 4096),   # Mixtral's ring chunk, a full ring
+    (512, 4096, 3000, 32, 8, 128, 4096),   # ... a ring with unfilled slots (-1)
+    (64, 256, 300, 6, 2, 16, 256),         # Mixtral SMOKE's heads
+    (128, 512, 700, 9, 3, 64, 300),        # a window shorter than the ring
+    (1, 1024, 2000, 32, 8, 128, 1024),     # one query
+    (1000, 1024, 1500, 8, 8, 112, 1024),   # ragged chunk, hd 112
+])
+def test_cuda_flash_attention_with_key_positions_matches_plain(c, w, filled, hp, hkv, hd,
+                                                               window):
+    """The ring chunk's call, [ring] ++ [chunk] with every key at its own
+    position (-1 unfilled), one launch, within FLASH_BF16_STEPS of the plain
+    version at each row's largest magnitude; the chunk's last 5 tokens are
+    pad, beyond kv_valid."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(c + hd)
+    ring = C.ring_positions(torch, dev, 1, w, (filled,))
+    q_pos = (filled + torch.arange(c, device=dev, dtype=torch.int32))[None].contiguous()
+    kv_pos = torch.cat([ring, q_pos], dim=1)
+    q = torch.randn((1, c, hp, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((1, w + c, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((1, w + c, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    valid = filled + max(1, c - 5)
+    FK.reset_launches()
+    got = FO.flash_attention(q, k, v, q_pos=q_pos, kv_valid=valid, window=window,
+                             kv_pos=kv_pos)
+    assert FK.LAUNCHES["flash_attention"] == 1
+    want = FR.flash_attention_ref(q, k, v, q_pos=q_pos, kv_valid=valid, window=window,
+                                  kv_pos=kv_pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert C.row_bf16_steps(got, want) <= FLASH_BF16_STEPS
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_key_positions_in_index_order_match_the_index_path():
+    """kv_pos = arange(Skv) visits every tile with per-key tests; the
+    result stays within FLASH_BF16_STEPS of the index path's."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((2, 256, 8, 64), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((2, 768, 2, 64), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((2, 768, 2, 64), generator=gen, device=dev).to(torch.bfloat16)
+    pos = (512 + torch.arange(256, device=dev, dtype=torch.int32))[None].expand(2, 256)
+    index = FO.flash_attention(q, k, v, q_pos=pos, kv_valid=768, window=300)
+    kv_pos = torch.arange(768, device=dev, dtype=torch.int32)[None].expand(2, 768)
+    ring = FO.flash_attention(q, k, v, q_pos=pos, kv_valid=768, window=300, kv_pos=kv_pos)
+    torch.cuda.synchronize()
+    assert C.row_bf16_steps(ring, index) <= FLASH_BF16_STEPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "rung"])
+def test_cuda_paged_attention_over_a_ring_mask_matches_plain(kernel):
+    """Decode over a bit-plane ring (wrapped, part-filled and just-full
+    rows): the positions and the window fold into the mask; the kernel
+    against the plain version at the serving tolerance."""
+    from repro_torch.kernels.paged_attention import ops as O
+
+    dev = _cuda()
+    b, w, hkv, rep, hd = 4, 1024, 8, 4, 128
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q = torch.randn((b, 1, hkv * rep, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kp, vp = (O.pack_kv_planes(torch.randn((b, w, hkv, hd), generator=gen, device=dev)
+                               .to(torch.bfloat16)) for _ in range(2))
+    ln = torch.tensor([3000, 1100, 600, 1023], dtype=torch.int32, device=dev)
+    kv_pos = C.ring_positions(torch, dev, b, w, [int(n) + 1 for n in ln])
+    choice = torch.tensor((8, 12, 16), dtype=torch.int32, device=dev)
+    pp = choice[torch.randint(0, 3, (b, w // 16), generator=gen, device=dev)]
+    args = dict(keeps=(8, 12, 16), q_pos=ln[:, None], kv_pos=kv_pos, window=800,
+                kernel=kernel)
+    got = O.batched_ladder_paged_attention(q, kp, vp, pp, ln + 1, **args)
+    with C.plain_attention():
+        want = O.batched_ladder_paged_attention(q, kp, vp, pp, ln + 1, **args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=C.KERNEL_ATOL, rtol=C.KERNEL_RTOL)
+
+
+@pytest.mark.cuda
+def test_cuda_mixtral_ring_step_matches_the_plain_path():
+    """Mixtral SMOKE (window 64) through the ring on the card: prefill
+    chunks past the window and decode steps through the kernels, against
+    the same steps with the plain attention and flash versions, logits
+    within LOGITS_RTOL_OF_MAX of the largest; every kernel of the path
+    launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import bitplane_cache_from_dense
+
+    dev = _cuda()
+    model = build_model(get_config("mixtral-8x7b", smoke=True))
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    w = model.cfg.attn_window
+    prompt = torch.randint(0, model.cfg.vocab, (1, 160), generator=torch.Generator(device=dev)
+                           .manual_seed(1), device=dev)
+
+    def run(cache):
+        for start in range(0, 160, w):  # chunks of the window, as the scheduler caps them
+            chunk = prompt[:, start:start + w]
+            logits, cache = model.prefill_chunk(params, chunk, cache, 0, start,
+                                                chunk.shape[1] - 1)
+        out = [logits]
+        cache["len"] = torch.tensor([160, 0], dtype=torch.int32, device=dev)
+        tok = logits.argmax(-1).repeat(2)
+        for _ in range(3):
+            logits, cache = model.decode(params, tok, cache, keeps=(16,))
+            out.append(logits[:1])
+            tok = logits.argmax(-1)
+        return torch.cat(out)
+
+    caches = []
+    for _ in range(2):  # the layout's conversion packs each layer's streams
+        caches.append(bitplane_cache_from_dense(model.init_cache(2, 256, dev)))
+        caches[-1]["len"] = torch.zeros(2, dtype=torch.int32, device=dev)
+    for m in C.launch_modules():
+        m.reset_launches()
+    got = run(caches[0])
+    launches = {k: v for m in C.launch_modules() for k, v in m.LAUNCHES.items()}
+    with C.uncounted(), C.plain_attention(), C.plain_flash():
+        want = run(caches[1])
+    torch.cuda.synchronize()
+    n = model.cfg.n_layers
+    assert launches["flash_attention"] == n * 3
+    assert launches["paged_attention_fused"] == n * 3
+    assert launches["bitplane_pack"] == n * 6 and launches["bitplane_unpack"] == n * 3
+    assert float((got - want).abs().max()) <= C.LOGITS_RTOL_OF_MAX * float(want.abs().max())

@@ -95,8 +95,8 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(smoke):
 
 
 @pytest.mark.parametrize("change,error,match", [
-    (dict(backend="ring"), NotImplementedError, "ring and sharded backends"),
-    (dict(backend="sharded"), NotImplementedError, "ring and sharded backends"),
+    (dict(backend="ring"), ValueError, "full attention"),
+    (dict(backend="sharded", shards=7), ValueError, "divides neither"),
     (dict(prefix_sharing=True, prefill_mode="padded"), ValueError, "prefix_sharing"),
     (dict(weight_stream="streamed"), ValueError, "weight_stream"),
     (dict(prefill_mode="padded"), NotImplementedError, "padded"),
@@ -125,13 +125,14 @@ def test_unported_model_configs_raise(smoke, change, match):
 def test_other_families_are_not_ported_yet(smoke):
     model, _ = smoke
     with pytest.raises(NotImplementedError, match="other model families"):
-        build_model(dataclasses.replace(model.cfg, family="moe"))
+        build_model(dataclasses.replace(model.cfg, family="encdec"))
 
 
 def test_other_architectures_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="dense family"):
-        get_config("mixtral-8x7b")
+    with pytest.raises(NotImplementedError, match="other model families"):
+        get_config("yi-9b")
     assert get_config("smollm-135m").n_layers == 30
+    assert get_config("mixtral-8x7b").attn_window == 4096
 
 
 def test_params_stay_where_the_caller_put_them(smoke):
