@@ -2,10 +2,8 @@
 
 An architecture registers a FULL config (the exact published shape) and a
 SMOKE config (same family, reduced depth/width, runnable on CPU in
-seconds).  The port serves the dense transformer family (``smollm-135m``),
-the MoE family (``mixtral-8x7b``), the SSM family (``mamba2-1.3b``) and the
-hybrid family (``zamba2-7b``); the other architectures of the reference
-raise until the slice that ports them lands.
+seconds).  The registry is the reference's: its ten architectures in its
+order, over six families (dense, moe, ssm, hybrid, vlm, encdec).
 """
 
 from __future__ import annotations
@@ -153,29 +151,22 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 _ARCH_MODULES = {
+    "yi-34b": "repro_torch.configs.yi_34b",
+    "nemotron-4-15b": "repro_torch.configs.nemotron_4_15b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "yi-9b": "repro_torch.configs.yi_9b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
-    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "llava-next-34b": "repro_torch.configs.llava_next_34b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
-
-#: architectures the reference registers that the port does not serve yet
-_LATER = (
-    "yi-34b", "nemotron-4-15b", "yi-9b", "deepseek-moe-16b",
-    "llava-next-34b", "whisper-tiny",
-)
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    if arch in _LATER:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet: the port serves smollm-135m "
-            f"(dense), mixtral-8x7b (moe), mamba2-1.3b (ssm) and zamba2-7b "
-            f"(hybrid); the other configs and families come with the 'other "
-            f"model families' slice (ROADMAP queue 1)"
-        )
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")
     mod = importlib.import_module(_ARCH_MODULES[arch])

@@ -4,7 +4,9 @@ slice).
 
 They run eagerly where the parameters and the inputs lie; nothing moves
 data between devices.  Greedy here; the serving engine composes decode
-with the sampler.
+with the sampler.  Every family's model has ``prefill`` and ``decode``
+(dense, MoE and VLM through the transformer's whole-prompt prefill, SSM,
+hybrid and enc-dec through their own), so both steps run all six.
 """
 
 from __future__ import annotations

@@ -1,3 +1,4 @@
-"""Models of the port: the dense, SSM (Mamba2) and hybrid (Zamba2) families."""
+"""Models of the port: all six families of the reference (dense, MoE,
+SSM, hybrid, VLM, enc-dec)."""
 
 from repro_torch.models.model import Model, build_model  # noqa: F401

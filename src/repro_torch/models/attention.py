@@ -51,6 +51,18 @@ def valid_q_heads(n_q_heads_padded, n_heads, n_kv_heads) -> np.ndarray:
     return (np.arange(n_q_heads_padded) % rep_p) < rep
 
 
+def mask_padded_heads(out: torch.Tensor, cfg) -> torch.Tensor:
+    """The attention output (B, S, Hp, hd) with its padded q heads set to
+    zero before ``wo`` (a padded head's zero query attends uniformly, so
+    its raw output is the mean of the values, not zero)."""
+    hp = out.shape[2]
+    if hp == cfg.n_heads:
+        return out
+    valid = torch.as_tensor(valid_q_heads(hp, cfg.n_heads, cfg.n_kv_heads),
+                            dtype=out.dtype, device=out.device)
+    return out * valid[None, None, :, None]
+
+
 def attn_params(generator, cfg, dtype=torch.bfloat16) -> dict:
     d = cfg.d_model
     hp, hkv, hd = cfg.n_q_heads_padded, cfg.n_kv_heads, cfg.head_dim
@@ -67,13 +79,16 @@ def _scale(hd: int, device) -> torch.Tensor:
     return torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32, device=device)
 
 
-def decode_attention(q, k, v, *, q_pos, kv_valid, window=0, kv_pos=None):
-    """Single-token causal attention over a dense cache (the reference's
+def decode_attention(q, k, v, *, q_pos, kv_valid, window=0, kv_pos=None,
+                     bidirectional=False):
+    """Single-token attention over a dense cache (the reference's
     ``decode_attention``): q (B, 1, Hp, hd); k/v (B, Skv, Hkv, hd); kv_pos
     (B, Skv) the slots' absolute positions of a ring cache (-1 =
-    unfilled), else their indices; ``window`` > 0 masks keys at or before
-    q_pos - window.  GQA is a reshape of q (grouped head layout); scores
-    are float32."""
+    unfilled), else their indices; keys at positions >= kv_valid are
+    masked, and so are keys after q_pos unless ``bidirectional`` (an
+    enc-dec model's cross attention over the encoder's frames); ``window``
+    > 0 masks keys at or before q_pos - window.  GQA is a reshape of q
+    (grouped head layout); scores are float32."""
     b, sq, hp, hd = q.shape
     hkv = k.shape[2]
     rep = hp // hkv
@@ -84,9 +99,11 @@ def decode_attention(q, k, v, *, q_pos, kv_valid, window=0, kv_pos=None):
     kv_valid = torch.as_tensor(kv_valid, device=q.device)
     if kv_valid.dim() == 0:
         kv_valid = kv_valid.expand(b)
-    ok = (kpos >= 0) & (kpos < kv_valid[:, None]) & (kpos <= q_pos[:, :1])
+    ok = (kpos >= 0) & (kpos < kv_valid[:, None])
+    if not bidirectional:
+        ok = ok & (kpos <= q_pos[:, :1])
     if window > 0:
-        ok &= kpos > q_pos[:, :1] - window
+        ok = ok & (kpos > q_pos[:, :1] - window)
     s = torch.where(ok[:, None, None, :], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -274,9 +291,6 @@ def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
             out = flash_ops.flash_attention(q, ck, cv, q_pos=pos, kv_valid=end,
                                             window=window)
 
-    if hp != cfg.n_heads:  # mask padded heads
-        valid = torch.as_tensor(valid_q_heads(hp, cfg.n_heads, cfg.n_kv_heads),
-                                dtype=out.dtype, device=out.device)
-        out = out * valid[None, None, :, None]
+    out = mask_padded_heads(out, cfg)
     y = out.reshape(b * s, -1) @ params["wo"].reshape(-1, d)
     return y.reshape(b, s, d), new_kv

@@ -1,5 +1,6 @@
-"""Shared primitives: norms (plain and Mamba2's gated one), rotary
-embeddings, the SwiGLU MLP, embeddings.
+"""Shared primitives: norms (plain and Mamba2's gated one), rotary and
+sinusoidal position embeddings, the MLPs (SwiGLU, squared ReLU, tanh
+GELU), embeddings.
 
 Plain functions over parameter dicts, in the reference's layouts.  The
 rounding points are the reference's (``models/layers.py``): float32 inside
@@ -71,16 +72,56 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq_len: int, d_model: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings, (seq_len, d_model)
+    float32: [sin, cos] of position x exp(-i log(10000) / (half - 1))."""
+    pos = torch.arange(offset, offset + seq_len, dtype=torch.float32, device=device)[:, None]
+    half = d_model // 2
+    rate = torch.tensor(math.log(10000.0) / max(1, half - 1), dtype=torch.float32,
+                        device=device)
+    inv = torch.exp(-torch.arange(half, dtype=torch.float32, device=device) * rate)
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def mlp_params(generator: torch.Generator, d: int, d_ff: int, act: str,
+               dtype=torch.bfloat16) -> dict:
+    """SwiGLU {w_gate, w_in, w_out}, or the non-gated {w_in, w_out} of the
+    squared-ReLU and GELU MLPs, drawn in that order."""
+    gate = {"w_gate": he_init((d, d_ff), generator, dtype)} if act == "swiglu" else {}
+    return {**gate,
+            "w_in": he_init((d, d_ff), generator, dtype),
+            "w_out": he_init((d_ff, d), generator, dtype, fan_in=d_ff)}
+
+
+def gelu_tanh(h: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh form) as XLA evaluates it in bf16: every
+    operation of x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3)))
+    rounded to the storage dtype, the constants too (bit for bit with the
+    reference over every normal bf16 input; ``F.gelu`` rounds only once)."""
+    dt = h.dtype
+
+    def const(c):
+        return torch.tensor(c, dtype=torch.float32, device=h.device).to(dt)
+
+    inner = h + const(0.044715) * (h * h * h)
+    cdf = 0.5 * (1.0 + torch.tanh(const(math.sqrt(2 / math.pi)) * inner))
+    return h * cdf
+
+
 def mlp_apply(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    if act != "swiglu":
-        raise NotImplementedError(
-            f"act={act!r}: the port's dense slice serves swiglu MLPs; other "
-            f"activations come with the 'other model families' slice"
-        )
-    g = x @ params["w_gate"]
-    # silu as the reference's XLA expands it for bf16: x * 1/(1 + exp(-x)),
-    # each op rounded to the storage dtype (F.silu rounds only once)
-    h = g * (1 / (1 + torch.exp(-g))) * (x @ params["w_in"])
+    if act == "swiglu":
+        g = x @ params["w_gate"]
+        # silu as the reference's XLA expands it for bf16: x * 1/(1 + exp(-x)),
+        # each op rounded to the storage dtype (F.silu rounds only once)
+        h = g * (1 / (1 + torch.exp(-g))) * (x @ params["w_in"])
+    elif act == "relu2":  # Nemotron: squared ReLU, non-gated
+        h = torch.square(torch.relu(x @ params["w_in"]))
+    elif act == "gelu":
+        h = gelu_tanh(x @ params["w_in"])
+    else:
+        raise ValueError(act)
     return h @ params["w_out"]
 
 
@@ -95,6 +136,33 @@ def stack_layers(trees: list) -> dict:
     axis (the reference's ``vmap``/``scan`` layout)."""
     return {k: stack_layers([t[k] for t in trees]) if isinstance(trees[0][k], dict)
             else torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def stack_layers_from(make, n: int) -> dict:
+    """``stack_layers([make() for _ in range(n)])`` without the second copy:
+    the stacked tensors are allocated from the first layer's tree and each
+    layer is written into them as it is made (a full-width model's layers
+    fill most of the card once, not twice).  The layers are made in order,
+    so generator draws are those of the list form."""
+    first = make()
+
+    def alloc(t):
+        return {k: alloc(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.new_empty((n,) + tuple(t.shape))
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    out = alloc(first)
+    fill(out, first, 0)
+    del first
+    for i in range(1, n):
+        fill(out, make(), i)
+    return out
 
 
 def empty_layers(one: dict) -> dict:

@@ -1,14 +1,14 @@
 """Mixture-of-Experts layer (port of the reference's ``models/moe.py``):
 top-k routing with sort-based dispatch into fixed-capacity expert buffers.
 
-1. router softmax (float32) -> top-k (expert, gate) per token, the gates
-   renormalised over the k;
+1. router softmax (float32) -> top-k (expert, gate) per token, ties to
+   the lower expert id, the gates renormalised over the k;
 2. the (token, k) assignments flattened and stably sorted by expert id;
 3. rank within the expert from the exclusive cumsum of expert counts;
 4. assignments ranked at or past the capacity are dropped;
 5. the survivors scattered into an (E, C, d) buffer, the expert SwiGLU as
    batched products over the expert axis, gathered back weighted by the
-   gate and added up per token.
+   gate and added up per token in bf16, by ascending expert id.
 
 Dispatch is per batch row (the reference ``vmap``s it): each row sorts its
 own tokens and has its own capacity.  Here the rows run together, their
@@ -58,6 +58,15 @@ def capacity(n_tokens: int, cfg, inference: bool = False) -> int:
     return max(8, int(ideal * cfg.capacity_factor + 0.999))
 
 
+def top_k_routes(probs: torch.Tensor, k: int):
+    """(gate, expert): each token's k largest router probabilities and
+    their experts, in lax.top_k's order: among equal probabilities (an
+    exact tie of bf16 router logits) the lower expert id first
+    (torch.topk leaves ties open)."""
+    gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return gate[..., :k], expert[..., :k]
+
+
 def moe_apply(params: dict, x: torch.Tensor, cfg, inference: bool = False):
     """x (B, S, d) -> ((B, S, d), aux): aux is the Switch-style load-balance
     loss E * sum_e f_e p_e, float32, averaged over the batch rows."""
@@ -67,7 +76,7 @@ def moe_apply(params: dict, x: torch.Tensor, cfg, inference: bool = False):
     n = s * k
     dev = x.device
     probs = torch.softmax((x @ params["router"]).float(), dim=-1)  # router fp32
-    gate, expert = torch.topk(probs, k, dim=-1)  # (B, S, k)
+    gate, expert = top_k_routes(probs, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
     flat_e = expert.reshape(b, n)
@@ -97,8 +106,16 @@ def moe_apply(params: dict, x: torch.Tensor, cfg, inference: bool = False):
                         x.new_zeros((b, 1, d))], dim=1)
     y_tok = (y_rows.gather(1, slot[..., None].expand(b, n, d))
              * (g_sorted * keep).to(x.dtype)[..., None])
-    out = x.new_zeros((b, s, d))
-    out.scatter_add_(1, t_sorted[..., None].expand(b, n, d), y_tok)
+    # the reference's bf16 scatter-add applies a token's k terms in the
+    # sorted order, by expert id, each add rounded to bf16 (XLA's order; a
+    # float32 sum or another order rounds apart from k = 3 on)
+    y_by_token = torch.empty_like(y_tok).scatter_(
+        1, order[..., None].expand(b, n, d), y_tok).reshape(b, s, k, d)
+    by_expert = torch.argsort(expert, dim=-1)
+    y_by_token = y_by_token.gather(2, by_expert[..., None].expand(b, s, k, d))
+    out = y_by_token[:, :, 0]
+    for j in range(1, k):
+        out = out + y_by_token[:, :, j]
 
     frac = counts.float() / n
     aux = e * (frac * probs.mean(dim=1)).sum(dim=-1)

@@ -1,5 +1,10 @@
-"""Decoder-only LM of the dense and MoE families (port of the reference's
-``models/transformer.py``: the serving entry points).
+"""Decoder-only LM of the dense, MoE and VLM families (port of the
+reference's ``models/transformer.py``: the prefill and serving entry
+points; the training loss comes with the training slice).
+
+The VLM family (LLaVA) is the dense LM with ``patch_proj`` (VISION_DIM, d):
+a batch's precomputed patch embeddings are projected and prepended to the
+text (:func:`embed_inputs`), and serve through the same caches.
 
 Parameters are a nested dict in the reference's layout — layer tensors
 stacked on axis 0 — so weights carry across bit-exactly
@@ -21,6 +26,7 @@ import torch
 
 from repro_torch.kernels.paged_attention.ops import pack_kv_planes
 from repro_torch.models.attention import attn_apply, attn_params
+from repro_torch.models.frontends import VISION_DIM
 from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.models.layers import (
     embed_apply,
@@ -28,17 +34,19 @@ from repro_torch.models.layers import (
     he_init,
     layer_slice,
     mlp_apply,
+    mlp_params,
     pdtype,
     rmsnorm,
     rmsnorm_params,
     stack_layers,
+    stack_layers_from,
 )
 
 
 def block_params(generator: torch.Generator, cfg, dtype) -> dict:
-    """One pre-norm block's weights {ln1, attn, ln2, mlp (SwiGLU)}, or
+    """One pre-norm block's weights {ln1, attn, ln2, mlp (``cfg.act``)}, or
     {..., moe} for the MoE family."""
-    d, ff, dev = cfg.d_model, cfg.d_ff, generator.device
+    d, dev = cfg.d_model, generator.device
     p = {
         "ln1": rmsnorm_params(d, dtype, dev),
         "attn": attn_params(generator, cfg, dtype),
@@ -47,29 +55,27 @@ def block_params(generator: torch.Generator, cfg, dtype) -> dict:
     if cfg.family == "moe":
         p["moe"] = moe_params(generator, cfg, dtype)
     else:
-        p["mlp"] = {
-            "w_gate": he_init((d, ff), generator, dtype),
-            "w_in": he_init((d, ff), generator, dtype),
-            "w_out": he_init((ff, d), generator, dtype, fan_in=ff),
-        }
+        p["mlp"] = mlp_params(generator, d, cfg.d_ff, cfg.act, dtype)
     return p
 
 
 def init_lm_params(cfg, generator: torch.Generator) -> dict:
     """Random weights in the reference's layout, drawn from ``generator``
     (on the device the parameters should live on)."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(
             f"family {cfg.family!r} is not a decoder-only LM of this module "
-            f"(dense and moe)")
+            f"(dense, moe and vlm)")
     dtype = pdtype(cfg)
     d = cfg.d_model
     embed = embed_params(generator, cfg.vocab_padded, d, dtype)
-    layers = [block_params(generator, cfg, dtype) for _ in range(cfg.n_layers)]
-    params = {"embed": embed, "layers": stack_layers(layers),
+    layers = stack_layers_from(lambda: block_params(generator, cfg, dtype), cfg.n_layers)
+    params = {"embed": embed, "layers": layers,
               "final_norm": rmsnorm_params(d, dtype, generator.device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": he_init((cfg.vocab_padded, d), generator, dtype)}
+    if cfg.family == "vlm":
+        params["patch_proj"] = he_init((VISION_DIM, d), generator, dtype)
     return params
 
 
@@ -108,13 +114,15 @@ def named_layer_tensors(handle: dict, prefix: str = "") -> list:
 
 
 def block_apply(lp, x, cfg, *, pos, cache=None, cache_len=None, kv_planes=None,
-                keeps=None, decode_kernel="fused", append_valid=None):
+                keeps=None, decode_kernel="fused", append_valid=None,
+                inference=None):
     """One pre-norm transformer block {ln1, attn, ln2, mlp or moe} over x
-    (B, S, d) (the dense and MoE families' layer and Zamba2's shared
+    (B, S, d) (the dense, MoE and VLM families' layer and Zamba2's shared
     block).  The cache arguments are :func:`attn_apply`'s.  The MoE layer
-    takes the inference capacity when a cache is given (prefill and
-    decode), the training one otherwise, as the reference.  Returns (x,
-    new_kv): new_kv is the projected (k, v) when ``cache`` is None."""
+    takes the inference capacity when ``inference`` (default: a cache is
+    given; a whole-prompt prefill passes True), the training one
+    otherwise, as the reference.  Returns (x, new_kv): new_kv is the
+    projected (k, v) when ``cache`` is None."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     attn_out, new_kv = attn_apply(lp["attn"], h, cfg, pos=pos, cache=cache,
                                   cache_len=cache_len, kv_planes=kv_planes,
@@ -126,33 +134,76 @@ def block_apply(lp, x, cfg, *, pos, cache=None, cache_len=None, kv_planes=None,
     h2 = rmsnorm(x.float() + attn_out.float(), lp["ln2"], cfg.norm_eps).to(x.dtype)
     x = x + attn_out
     if "moe" in lp:
-        ffn, _ = moe_apply(lp["moe"], h2, cfg, inference=cache is not None)
+        inference = cache is not None if inference is None else inference
+        ffn, _ = moe_apply(lp["moe"], h2, cfg, inference=inference)
         return x + ffn, new_kv
     return x + mlp_apply(lp["mlp"], h2, cfg.act), new_kv
 
 
-def run_stack(params, cfg, x, pos, cache=None, keeps=None, decode_kernel="fused"):
+def run_stack(params, cfg, x, pos, cache=None, keeps=None, decode_kernel="fused",
+              want_cache=False):
     """x: (B, S, d); pos: (B, S).  cache: None (plain causal forward) or a
     serving cache dict (dense or bit-plane, ring or not, see the module
     docstring) whose rows are appended in place; a ring chunk's cache
     also carries ``'valid'``, the absolute end of the chunk's real tokens.
     ``keeps``/``decode_kernel`` steer bit-plane decode.  Returns the final
-    hidden states (B, S, d)."""
+    hidden states (B, S, d); with ``want_cache`` (a whole-prompt prefill,
+    no cache given) also the new dense cache {'k', 'v': (L, B, S, Hkv,
+    hd)}, each layer's projected keys and values written into it as the
+    layer runs, and the MoE layers at the inference capacity."""
     cache_len = None if cache is None else cache["len"]
+    if torch.is_tensor(cache_len) and cache_len.dim() == 0:
+        # one length for every row (a whole-prompt prefill's cache): read
+        # it once a step, not once a layer
+        cache_len = int(cache_len)
     bitplane = cache is not None and "k_planes" in cache
     ring = cache is not None and "pos" in cache
     append_valid = None if cache is None else cache.get("valid")
     kn, vn = ("k_planes", "v_planes") if bitplane else ("k", "v")
     kv_planes = cache.get("planes") if bitplane else None
+    new = None
+    if want_cache:
+        if cache is not None:
+            raise ValueError("want_cache builds a new cache: pass no cache")
+        shape = (cfg.n_layers,) + tuple(x.shape[:2]) + (cfg.n_kv_heads, cfg.head_dim)
+        new = {name: x.new_empty(shape) for name in ("k", "v")}
     for i in range(cfg.n_layers):
         kv = None
         if cache is not None:
             kv = (cache[kn][i], cache[vn][i]) + ((cache["pos"][i],) if ring else ())
-        x, _ = block_apply(layer_slice(params["layers"], i), x, cfg, pos=pos,
-                           cache=kv, cache_len=cache_len, kv_planes=kv_planes,
-                           keeps=keeps, decode_kernel=decode_kernel,
-                           append_valid=append_valid)
-    return x
+        x, new_kv = block_apply(layer_slice(params["layers"], i), x, cfg, pos=pos,
+                                cache=kv, cache_len=cache_len, kv_planes=kv_planes,
+                                keeps=keeps, decode_kernel=decode_kernel,
+                                append_valid=append_valid,
+                                inference=True if want_cache else None)
+        if new is not None:
+            new["k"][i], new["v"][i] = new_kv
+    return (x, new) if want_cache else x
+
+
+def embed_inputs(params, cfg, batch: dict):
+    """batch {'tokens': (B, S) int[, 'patches': (B, P, VISION_DIM)]} ->
+    (x (B, S', d), pos (B, S')): the VLM family's patches projected
+    through ``patch_proj`` (in the storage dtype) and prepended, S' = P +
+    S; positions 0..S'-1."""
+    x = embed_apply(params["embed"], batch["tokens"].long())
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(x.dtype) @ params["patch_proj"]
+        x = torch.cat([patches, x], dim=1)
+    b, s = x.shape[:2]
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    return x, pos
+
+
+def lm_prefill(params, cfg, batch: dict):
+    """Whole-prompt prefill (the reference's ``lm_prefill``): returns
+    (last-token logits (B, Vpad) float32, cache {'k', 'v': (L, B, S', Hkv,
+    hd), 'len': S'}), S' counting a VLM's patches.  Attention runs through
+    the flash kernel on the card, as the chunked prefill does."""
+    x, pos = embed_inputs(params, cfg, batch)
+    x, cache = run_stack(params, cfg, x, pos, want_cache=True)
+    cache["len"] = torch.tensor(x.shape[1], dtype=torch.int32, device=x.device)
+    return _logits(params, cfg, x[:, -1:])[:, 0], cache
 
 
 def _logits(params, cfg, x):
@@ -194,14 +245,14 @@ def lm_prefill_chunk(params, cfg, tokens, cache, slot: int, start: int,
 def lm_decode(params, cfg, token, cache, keeps=None, decode_kernel="fused"):
     """token: (B,) int; cache['len']: (B,) per-row lengths (continuous
     batching: each slot decodes at its own position against its own valid
-    prefix).  Bit-plane caches take ``keeps`` — the plane counts the ladder
+    prefix) or one length for every row (a cache from :func:`lm_prefill`).  Bit-plane caches take ``keeps`` — the plane counts the ladder
     can assign — and run decode attention through the paged-attention
     kernel (``decode_kernel``: "fused" = one launch per layer, "rung" = one
     launch per member of ``keeps``).  Returns (logits (B, Vpad) float32,
     cache) with the new token's rows written in place."""
     x = embed_apply(params["embed"], token[:, None])
     ln = torch.as_tensor(cache["len"], dtype=torch.int32, device=x.device)
-    pos = ln[:, None]
+    pos = ln.expand(x.shape[0])[:, None]
     x = run_stack(params, cfg, x, pos, cache=cache, keeps=keeps,
                   decode_kernel=decode_kernel)
     logits = _logits(params, cfg, x)[:, 0]

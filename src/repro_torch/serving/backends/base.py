@@ -284,17 +284,12 @@ class KVBackend(abc.ABC):
     @classmethod
     def check_model(cls, mcfg, cfg) -> None:
         """Raise when this backend cannot serve the model/config."""
-        if mcfg.family in ("ssm", "hybrid", "encdec"):
+        if mcfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"continuous batching supports dense-cache families, got "
                 f"{mcfg.family!r} (use family-specific engines for "
-                f"ssm/hybrid/encdec: the SSM family serves through "
+                f"ssm/hybrid/encdec: every family serves through "
                 f"repro_torch.launch's prefill and serve steps)"
-            )
-        if mcfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"the port serves the dense and moe families; {mcfg.family!r} "
-                f"comes with the 'other model families' slice (ROADMAP queue 1)"
             )
         if 0 < mcfg.attn_window < cfg.max_ctx:
             raise NotImplementedError(

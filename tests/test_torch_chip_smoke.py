@@ -7,6 +7,7 @@ isolation and refusal without a GPU; and the flash rows' helpers (phase
 shapes)."""
 
 import ast
+import dataclasses
 import math
 import contextlib
 import os
@@ -662,3 +663,178 @@ def test_ring_phase_checks_pass_on_the_smoke_model(ring_phase):
         assert run["first_page"][5] == 0
     same, total = ring_phase["agree"]
     assert same == total  # on the CPU both routes take the plain attention
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the remaining model families, at smoke size on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_phase8_requests_follow_the_lengths_not_the_vocab():
+    """8a's and 8b's traces: the prompt lengths (which set every count the
+    card run is held to) are drawn before the tokens, so a SMOKE vocab
+    gives the FULL run's lengths."""
+    for arch, n, lo, hi in C.FAMILY_RUNS:
+        full = C.family_requests(get_config(arch).vocab, n, lo, hi)
+        smoke = C.family_requests(get_config(arch, smoke=True).vocab, n, lo, hi)
+        assert [len(r.prompt) for r in full] == [len(r.prompt) for r in smoke]
+        assert len(full) == n and all(lo <= len(r.prompt) <= hi for r in full)
+        assert all(r.max_new_tokens == C.FAMILY_NEW for r in full)
+        assert max(len(r.prompt) for r in full) + C.FAMILY_NEW <= C.FAMILY_CTX
+
+
+def test_phase8_shapes_are_the_configs():
+    """Phase 6's rows of phase 8 take the FULL configs' heads: Nemotron-4
+    48/8, DeepSeek 16/16, LLaVA 56 padded to 64 over 8 (2,880 patches and
+    1,024 tokens), Whisper 6/6 of 64 over 1,500 frames."""
+    def heads(arch):
+        c = get_config(arch)
+        return c.n_q_heads_padded, c.n_kv_heads, c.head_dim
+
+    flash = dict(C.FLASH_PHASE8)
+    for name, arch in (("nemotron-4-15b chunk", "nemotron-4-15b"),
+                       ("deepseek-moe-16b chunk", "deepseek-moe-16b"),
+                       ("llava-next-34b prefill", "llava-next-34b"),
+                       ("whisper-tiny encoder", "whisper-tiny"),
+                       ("whisper-tiny cross", "whisper-tiny")):
+        assert tuple(flash[name][3:6]) == heads(arch)
+    vlm = get_config("llava-next-34b")
+    assert flash["llava-next-34b prefill"][1] == vlm.n_patches + C.VLM_TEXT
+    assert flash["whisper-tiny encoder"][2] == get_config("whisper-tiny").enc_seq
+    for arch, (b, s, hkv, rep, hd) in C.PAGED_PHASE8:
+        c = get_config(arch)
+        assert (hkv, rep, hd) == (c.n_kv_heads, c.gqa_rep, c.head_dim)
+        assert (b, s) == (C.FAMILY_BATCH, C.FAMILY_CTX)
+
+
+def test_phase8_family_run_at_smoke_size():
+    """8a's run at DeepSeek SMOKE width: every request served fused and
+    rung, every layer's attention sub-layer within ATTN_BF16_STEPS of the
+    plain one (equal here: both take the plain versions), device bytes the
+    controller's, and the KV bytes a token printed."""
+    model, params = C.family_model(torch, torch.device("cpu"), "deepseek-moe-16b", smoke=True)
+    out = C.run_family_phase(torch, model, params, 4, 20, 70, "phase 8a", new=6,
+                             profile_steps=0, max_batch=3, max_ctx=128)
+    assert len(out["layers"]) == model.cfg.n_layers
+    assert max(max(w) for w in out["layers"]) <= C.ATTN_BF16_STEPS
+    assert out["agree"][0] == out["agree"][1] == 4 * 6
+    assert out["forced"] is None  # the teacher-forced step runs on the card only
+    for run in out["runs"].values():
+        rep = run["rep"]
+        assert rep["decode_steps"] > 0 and rep["prefill_chunks"] > 0
+        assert run["bytes_a_token"]["kv_stored"] > 0
+
+
+def test_phase8_prefill_families_at_smoke_size():
+    """8c (LLaVA SMOKE with its heads padded 8 -> 16, as the FULL config
+    pads 56 to 64) and 8d (Whisper SMOKE on 40 frames): every attention
+    sub-layer checked, padded heads exactly zero before ``wo``, decode
+    after prefill consistent with prefill."""
+    dev = torch.device("cpu")
+    v = C.run_vlm_phase(torch, dev, smoke=True, b=2, text=24, max_len=64, steps=3,
+                        pad_heads_to=16)
+    assert v["layers"] == 2 and v["attn_steps"] <= C.FLASH_BF16_STEPS
+    assert v["consistency"] <= C.LOGITS_RTOL_OF_MAX
+    assert v["prefill_device_ms"] is None  # no card: not measured
+    w = C.run_whisper_phase(torch, dev, smoke=True, b=2, text=12, steps=3, enc_seq=40)
+    assert w["attn_steps"] <= C.FLASH_BF16_STEPS and w["decode_device_ms"] is None
+
+
+def test_padded_heads_watch_catches_an_unmasked_head(monkeypatch):
+    """The 8c check fails where a padded head reaches ``wo`` unmasked."""
+    from repro_torch.models import attention as A
+
+    cfg = dataclasses.replace(get_config("llava-next-34b", smoke=True), pad_heads_to=16)
+    monkeypatch.setattr(A, "mask_padded_heads", lambda out, c: out)
+    out = torch.ones((1, 2, cfg.n_q_heads_padded, cfg.head_dim), dtype=torch.bfloat16)
+    with C.padded_heads_watch(torch, cfg, []):
+        with pytest.raises(AssertionError, match="padded q heads"):
+            A.mask_padded_heads(out, cfg)
+
+
+def test_pinned_routes_replay_the_plain_runs_experts():
+    """8a's teacher-forced check pins a decode step's MoE routes: recording
+    its own routes, the layer is ``moe_apply`` bit for bit (only the top-k
+    choice is wrapped), and a replay with the recorded routes gives the
+    same output whatever the router then says."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import layer_slice
+
+    model, params = C.family_model(torch, torch.device("cpu"), "deepseek-moe-16b", smoke=True)
+    cfg, lp = model.cfg, layer_slice(params["layers"], 0)["moe"]
+    x = torch.randn((3, 1, cfg.d_model), generator=torch.Generator().manual_seed(2)).to(
+        torch.bfloat16)
+    want, _ = T.moe_apply(lp, x, cfg, inference=True)
+    routes = []
+    with C.pinned_routes(torch, routes, record=True):
+        got, _ = T.moe_apply(lp, x, cfg, inference=True)
+    assert len(routes) == 1 and tuple(routes[0].shape) == (3, 1, cfg.moe_top_k)
+    assert torch.equal(got, want)
+    with C.pinned_routes(torch, routes, record=False):
+        again, _ = T.moe_apply(lp, x, cfg, inference=True)
+    assert torch.equal(again, got) and len(routes) == 1  # replayed, not recorded anew
+    # a router that would pick other experts is overruled by the recorded routes
+    other = dict(lp, router=-lp["router"])
+    own = torch.sort(torch.softmax((x @ other["router"]).float(), -1), dim=-1, descending=True,
+                     stable=True)[1][..., :cfg.moe_top_k]
+    assert not torch.equal(own.sort(-1).values, routes[0].sort(-1).values)
+    with C.pinned_routes(torch, routes, record=False):
+        pinned, _ = T.moe_apply(other, x, cfg, inference=True)
+    unpinned, _ = T.moe_apply(other, x, cfg, inference=True)
+    assert not torch.equal(pinned, unpinned)
+
+
+def test_device_ms_each_splits_one_window_in_launch_order(monkeypatch):
+    """Phase 6's serving mix times every chunk in one profiler window: the
+    window's matching device kernels, in the order they started, are split
+    into each call's ``iters * per_call`` and averaged over ``iters``; a
+    window short of launches is measured once more, with the full pads."""
+    from types import SimpleNamespace
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def event(name, start, us, device=cuda):
+        return SimpleNamespace(name=name, device_type=device, time_range=SimpleNamespace(
+            start=start, elapsed_us=lambda: us))
+
+    # call a: 2 kernels a call at 1 us each; call b: 1 kernel at 5 us; a
+    # host event and another kernel in between; listed out of order
+    events = [event("flash_attention_merge", 30, 1), event("other", 5, 100),
+              event("flash_attention_kernel", 10, 1), event("flash_attention_x", 0, 1),
+              event("launch", 1, 7, cpu), event("flash_attention_kernel", 20, 1),
+              event("flash_attention_b", 40, 5), event("flash_attention_b", 50, 5)]
+    windows = []
+
+    def window(run, what, pad):
+        run()
+        windows.append(pad)
+        return None, events if len(windows) > 1 else events[:3], None
+
+    monkeypatch.setattr(C, "profile_window", window)
+    calls = []
+    got = C.device_ms_each([(lambda i: calls.append(("a", i)), 2),
+                            (lambda i: calls.append(("b", i)), 1)],
+                           "flash_attention_", 2, "chunks")
+    assert got == [pytest.approx(4 / 2 / 1e3), pytest.approx(10 / 2 / 1e3)]
+    # the first window, with the timing loops' pads, was short: measured
+    # again with the full pads
+    assert windows == [C.REPEATABLE_PAD, C.PROFILER_PAD]
+    assert calls[:2] == [("a", 0), ("b", 0)]  # warmed once each, then a, a, b, b
+    assert calls[2:6] == [("a", 0), ("a", 1), ("b", 0), ("b", 1)]
+
+
+@pytest.mark.parametrize("run, lost, complete", [
+    (6, [], True),
+    (6, [0, 1, 2, 1023], True),                          # among the leading pads
+    (6, [1030 + C.TAIL_PAD - 1], True),                  # the last launch, a closing pad
+    (6, [*range(900, 1024), *range(1030, 1030 + C.TAIL_PAD)], True),  # both runs of pads
+    (6, [1024], False),                                  # the run's first launch
+    (6, [5, 1029], False),                               # the run's last launch
+    (0, [], False),                                      # nothing between the pads
+])
+def test_window_fault_allows_losses_only_among_the_pads(run, lost, complete):
+    """A window of 1,024 leading pads, ``run`` launches of its run and
+    TAIL_PAD closing pads is complete when its run launched something and
+    no record of the run's launches was lost."""
+    fault = C.window_fault(1024 + run + C.TAIL_PAD, lost, 1024)
+    assert (fault is None) == complete, fault

@@ -822,3 +822,85 @@ def test_cuda_mixtral_ring_step_matches_the_plain_path():
     assert launches["paged_attention_fused"] == n * 3
     assert launches["bitplane_pack"] == n * 6 and launches["bitplane_unpack"] == n * 3
     assert float((got - want).abs().max()) <= C.LOGITS_RTOL_OF_MAX * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,hp,hkv,hd,start,valid,causal", [
+    (1, 512, 2048, 48, 8, 128, 0, 512, True),       # Nemotron-4: rep 6, 21 tokens a block
+    (1, 512, 2048, 48, 8, 128, 1024, 1536, True),   # ... a chunk at an offset: keys split
+    (1, 512, 2048, 16, 16, 128, 0, 512, True),      # DeepSeek-MoE: rep 1 at hd 128
+    (1, 700, 700, 64, 8, 128, 0, 700, True),        # LLaVA's heads: 56 padded to 64
+    (2, 1500, 1500, 6, 6, 64, 0, 1500, False),      # Whisper encoder: 92 keys in the last tile
+    (2, 224, 1500, 6, 6, 64, 0, 1500, False),       # Whisper cross attention: Sq != Skv
+])
+def test_cuda_flash_attention_matches_plain_at_the_new_families(b, sq, skv, hp, hkv, hd,
+                                                                start, valid, causal):
+    """The flash kernel at the shapes the new families give it (phase 8),
+    each against its plain version within FLASH_BF16_STEPS a row; a
+    padded q head's zero query attends uniformly (its output is the mean
+    of the values, masked by the model before ``wo``)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(sq + hp * hd)
+    q = torch.randn((b, sq, hp, hd), generator=gen, device=dev).to(torch.bfloat16)
+    if hp == 64:  # LLaVA's grouped layout: the last slot of each group of 8 is padding
+        q[:, :, 7::8] = 0
+    k = torch.randn((b, skv, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, skv, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    pos = (start + torch.arange(sq, device=dev, dtype=torch.int32))[None].expand(b, sq)
+    FK.reset_launches()
+    got = FO.flash_attention(q, k, v, q_pos=pos, kv_valid=valid, causal=causal)
+    assert FK.LAUNCHES["flash_attention"] == 1
+    want = FR.flash_attention_ref(q, k, v, q_pos=pos, kv_valid=valid, causal=causal)
+    torch.cuda.synchronize()
+    assert C.row_bf16_steps(got, want) <= FLASH_BF16_STEPS
+    if hp == 64:
+        mean = v.float().mean(1)[:, None, :, None].expand(b, sq, hkv, 1, hd)
+        pad = got.reshape(b, sq, hkv, 8, hd)[:, :, :, 7:].float()
+        assert not causal or torch.allclose(pad[:, -1], mean[:, -1], atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", C.PAGED_PHASE8)
+def test_cuda_paged_attention_matches_plain_at_the_new_families(name, shape):
+    """Both paged kernels at phase 8's decode shapes (DeepSeek: 16 kv heads,
+    rep 1; Nemotron-4: 8 kv heads, rep 6; hd 128), keeps {8, 12, 16} and
+    phase 8's lengths with a row that holds nothing: the fused output, the
+    rung partials and their merge against the plain versions."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    case = C.random_case(torch, dev, gen, shape, (8, 12, 16), C.PAGED_PHASE8_LENS)
+    C.check_paged_case(torch, case, 3, (8, 12, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-tiny"])
+def test_cuda_prefill_families_match_the_plain_path(arch):
+    """LLaVA (SMOKE, q heads padded 8 -> 16) and Whisper SMOKE through
+    phase 8c's and 8d's runs on the card: every attention sub-layer of the
+    prefill through the flash kernel within FLASH_BF16_STEPS of the plain
+    one, padded heads exactly zero before ``wo``, decode after prefill
+    within LOGITS_RTOL_OF_MAX of prefill, and flash launched once per
+    attention sub-layer of a prefill and never in decode."""
+    dev = _cuda()
+    if arch == "whisper-tiny":
+        out = C.run_whisper_phase(torch, dev, smoke=True, b=2, text=40, steps=4)
+        assert out["launches"]["flash_attention"] == 2 + 2 * 2
+    else:
+        out = C.run_vlm_phase(torch, dev, smoke=True, b=2, text=40, max_len=128, steps=4,
+                              pad_heads_to=16, n_layers=2)
+        assert out["launches"]["flash_attention"] == 2
+    assert out["attn_steps"] <= FLASH_BF16_STEPS
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_serving_matches_the_plain_path():
+    """DeepSeek-MoE SMOKE served through the paged kernels on the card
+    (phase 8a's run at smoke size): every request served, launches as the
+    counts predict, each attention sub-layer of a decode step fused and
+    rung within two bf16 steps of the plain attention."""
+    dev = _cuda()
+    model, params = C.family_model(torch, dev, "deepseek-moe-16b", smoke=True)
+    out = C.run_family_phase(torch, model, params, 4, 20, 70, "card test", new=6,
+                             profile_steps=0, max_batch=2, max_ctx=128)
+    assert max(max(w) for w in out["layers"]) <= C.ATTN_BF16_STEPS
+    assert out["forced"]["fused_vs_plain"] <= C.LOGITS_RTOL_OF_MAX * out["forced"]["max_logit"]

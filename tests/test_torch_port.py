@@ -1,6 +1,7 @@
 """The PyTorch port's surface: it stands apart from JAX and the reference
-package, it never falls back to the CPU on its own, and what the first
-slice does not serve raises a precise error."""
+package, it never falls back to the CPU on its own, every architecture of
+the reference builds, and what the port does not serve raises a precise
+error."""
 
 import ast
 import dataclasses
@@ -23,6 +24,10 @@ from repro_torch.serving import ContinuousScheduler, EngineConfig, Request, Serv
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
+#: the reference's registry, in its order (src/repro/configs/base.py)
+REFERENCE_ARCHS = ("yi-34b", "nemotron-4-15b", "smollm-135m", "yi-9b", "deepseek-moe-16b",
+                   "mixtral-8x7b", "mamba2-1.3b", "zamba2-7b", "llava-next-34b",
+                   "whisper-tiny")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -122,17 +127,25 @@ def test_unported_model_configs_raise(smoke, change, match):
         ContinuousScheduler(other, params, EngineConfig(max_ctx=64), device="cpu")
 
 
-def test_other_families_are_not_ported_yet(smoke):
-    model, _ = smoke
-    with pytest.raises(NotImplementedError, match="other model families"):
-        build_model(dataclasses.replace(model.cfg, family="encdec"))
+@pytest.mark.parametrize("arch", REFERENCE_ARCHS)
+def test_every_reference_architecture_is_ported(arch):
+    """The registry is the reference's (its ten architectures, in its
+    order); each FULL and SMOKE config equals the reference's field for
+    field, and ``build_model`` builds its family."""
+    import dataclasses as dc
 
+    from repro.configs.base import get_config as ref_config
 
-def test_other_architectures_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="other model families"):
-        get_config("yi-9b")
-    assert get_config("smollm-135m").n_layers == 30
-    assert get_config("mixtral-8x7b").attn_window == 4096
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models.model import EncDecModel, HybridModel, Model, SSMModel
+
+    assert ARCH_IDS == REFERENCE_ARCHS
+    kinds = {"dense": Model, "moe": Model, "vlm": Model, "ssm": SSMModel,
+             "hybrid": HybridModel, "encdec": EncDecModel}
+    for smoke in (False, True):
+        cfg = get_config(arch, smoke=smoke)
+        assert dc.asdict(cfg) == dc.asdict(ref_config(arch, smoke=smoke))
+        assert isinstance(build_model(cfg), kinds[cfg.family])
 
 
 def test_params_stay_where_the_caller_put_them(smoke):
