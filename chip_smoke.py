@@ -10,11 +10,11 @@ nothing of JAX and nothing of the JAX package ``repro``.
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
-1. The card's name and power limit; build the six kernel libraries
+1. The card's name and power limit; build the seven kernel libraries
    from ``src/repro_torch/csrc`` (paged attention, bit-plane pack/unpack,
-   bit-plane matmul, the SSD scan, flash attention, exponent-delta
-   encode/decode; one ``nvcc`` each, all started together) and report the
-   build times and ptxas register lines.
+   bit-plane matmul, the SSD scan, flash attention and its backward,
+   exponent-delta encode/decode; one ``nvcc`` each, all started together)
+   and report the build times and ptxas register lines.
 2. Each kernel against its plain PyTorch version on the card.  Paged
    attention at the serving shapes of full-width SmolLM-135M (B=8,
    S=1024, Hkv=3, rep=3, hd=64): mixed plane counts {8, 12, 16} with
@@ -111,6 +111,18 @@ Phases (any failure exits non-zero; no phase's error is caught):
    greedy tokens equal to phase 3's paged fused run, page-write bytes
    queued equal to its, the shards' stored logical bytes plus the writes
    ``retire`` cancelled equal to what was queued, launches as phase 3's.
+3t. Staged decode and padded admission: the first 8 of phase 3's
+   requests on phase 3's model, (a) on dense device KV with a 16-token
+   staging ring, teacher-forced with the same trace's unstaged tokens
+   (greedy tokens equal; every decode row within ``STAGED_ROW_STEPS``
+   bf16 steps of the unstaged row; layer 0's keys and values equal bit
+   for bit; every request folds at least two windows back;
+   flash once a layer a prefill chunk, no paged, pack or unpack launch),
+   (b) ``prefill_mode="padded"`` with bit-plane device KV, phase 3's
+   ladder and the fused kernel (flash once a layer a padded prefill, one
+   pack a layer a decode step and one an adoption, one encode a
+   page-writing span) against a bucketed run of the same trace: tok/s and
+   prefill tokens of both.
 4. The paper-pipeline quickstart (``repro_torch.quickstart``) on the card,
    launch counts reset before and read after (two packs, one
    exponent-delta encode for the KV surrogate, two matmuls): its byte
@@ -183,10 +195,30 @@ Phases (any failure exits non-zero; no phase's error is caught):
    sub-layer of the prefill against the plain one, 64 decode steps, the
    consistency check.  8c and 8d print prefill ms (host, device), flash's
    share of the device time and decode ms a step.
+9. Training at full width.  9a: the flash backward kernel against its
+   plain version (dq, dk, dv within 2 bf16 steps of each one's largest
+   magnitude) and the forward's lse against the plain one, at
+   SmolLM-135M's training shape (B 8, L 2,048, 9/3 heads of 64, causal), a
+   64-key window, Whisper-tiny's encoder (1,500 frames of a 1,536-row key
+   buffer) and its cross attention (224 over 1,500).  9b: full-width
+   SmolLM-135M through ``make_train_step`` (2 micro-batches of a
+   ShardedLoader batch of 8 x 2,048): one step's loss and gradients,
+   launch counts reset before and read after (flash forward and backward
+   once a layer a micro-batch), against the same step through the plain
+   versions (loss, global gradient norm, every leaf's cosine); a profiler
+   window over one step; 10 AdamW steps on the batch, the loss falling;
+   host and device ms a step and tokens/s.  9d: ``TrainSupervisor`` and a
+   ``CheckpointManager`` on a temporary directory under ``build/`` over 9b's
+   model, its top layer trained: an injected ``SimulatedFailure``, one
+   recovery from the last checkpoint, the batches replayed exactly once,
+   every restored tree the saved one bit for bit, the saves and loads
+   timed with the card's codec.  9c: Whisper-tiny through
+   ``make_train_step``, 3 steps on B 8 x (1,500 frames + 224 tokens), the
+   loss falling.
 6. Kernel times (CUDA events and profiler device time) beside their
    bound, the plain version's time and one PyTorch call's where one
    computes the same function (device time too for the paged rows and the
-   matmul), printed as one ``{"kernels": [...]}`` line (nine rows: every
+   matmul), printed as one ``{"kernels": [...]}`` line (ten rows: every
    kernel of the port; the matmul row carries its Zamba2-7B MLP rows, cold,
    under ``shapes``; the pack row the decode append (K+V of B 8 into a
    1,024-row cache) beside the parent's route (a flat pack a stream and an
@@ -228,7 +260,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    8's shapes (Nemotron-4's and DeepSeek's 1,024-token prefill chunks,
    LLaVA's prefill, Whisper's encoder and cross attention), each beside
    its plain version, its bound and SDPA over the same valid keys; the
-   paged rows, at 8a's and 8b's decode (B 4, 2,048 slots).
+   paged rows, at 8a's and 8b's decode (B 4, 2,048 slots).  Then the flash
+   backward's row (ten rows in all), at SmolLM-135M's training shape,
+   beside its plain version, its bound (five products over the visible
+   pairs) and SDPA's forward and backward; every row counts its launches
+   in phases 3t and 9 too.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -242,6 +278,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -264,13 +301,15 @@ SSD_PASSES_F32 = (3, 3, 3, 3)
 SSD_PASSES_BF16_BC = (1, 3, 2, 3)
 
 SOURCES = ("paged_attention.cu", "bitplane.cu", "bitplane_matmul.cu", "ssd.cu",
-           "flash_attention.cu", "exp_delta.cu")
+           "flash_attention.cu", "exp_delta.cu", "flash_attention_bwd.cu")
 
 B, S, HKV, REP, HD, BITS = 8, 1024, 3, 3, 64, 16
-# integer report counters that came with shared-prefix pages: the phase-3
+# integer report counters that came with shared-prefix pages, and the
+# count of prefill shapes that came with padded admission: the phase-3
 # digest leaves them out, so that it compares with trees from before them
 NEW_REPORT_KEYS = ("prefill_chunks_skipped", "prefix_requests_matched",
-                   "prefix_tokens_matched", "prefix_pages_matched", "prefix_bytes_deduped")
+                   "prefix_tokens_matched", "prefix_pages_matched", "prefix_bytes_deduped",
+                   "prefill_compiles")
 # Phase 3p's request mix: make_trace's three classes at deployment sizes on
 # a 1,024-token context (name, shared prefix, suffix range, new tokens,
 # weight): chat turns behind a 384-token system prompt, agentic loops
@@ -474,6 +513,7 @@ def build_kernels() -> None:
                 log(f"  ptxas: {line.strip()}")
     for mod in (K, BK, MK, SK, FK, EK):
         mod._library()
+    FK._library_bwd()
     log(f"phase 1: {len(SOURCES)} libraries built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -491,13 +531,15 @@ def build_kernels() -> None:
 # measured again, opens its first window with REPEATABLE_PAD (above the
 # most records a window has lost, 927, over 683 windows of three full runs)
 # and only a second one with PROFILER_PAD.  A window also closes with
-# TAIL_PAD pads: the profiler now and then loses the records of a window's
-# last launches as well (the two windows that lost records past the
-# leading pads over PR 25's runs, 46 and 215 records, both lost the last
-# launch's), and a lost record is allowed among either run of pads.
+# half as many pads as it opened with: the profiler now and then loses
+# the records of a window's last launches as well (the two windows that
+# lost records past the leading pads over PR 25's runs, 46 and 215
+# records, both lost the last launch's; a window over a serving run's
+# steps, which cannot be measured again, lost 523 at its end), and a lost
+# record is allowed among either run of pads.  A timing loop's window,
+# the common one, thus closes with 512 pads, a stateful one with 2,048.
 PROFILER_PAD = 4096
 REPEATABLE_PAD = 1024
-TAIL_PAD = 512
 INCOMPLETE_WINDOWS: list = []
 WINDOW_LOSSES: list = []
 # host seconds each profiler window took, from opening it to its parsed events
@@ -507,7 +549,7 @@ WINDOW_SECONDS: list = []
 def profile_window(run, what: str, pad: int = PROFILER_PAD) -> tuple:
     """A torch.profiler window, host and device activity traced, around
     ``run()`` and a synchronise, opened with ``pad`` pad kernels and closed
-    with TAIL_PAD.  Each kernel launch the host traced is matched to its
+    with ``pad // 2``.  Each kernel launch the host traced is matched to its
     device record by correlation id; a lost record is allowed only among
     the pads (``window_fault``).  Returns the profiler, its events and the
     fault (None when complete)."""
@@ -521,7 +563,7 @@ def profile_window(run, what: str, pad: int = PROFILER_PAD) -> tuple:
         for _ in range(pad):
             torch.cuda._sleep(1)
         run()
-        for _ in range(TAIL_PAD):
+        for _ in range(pad // 2):
             torch.cuda._sleep(1)
         torch.cuda.synchronize()
     events = prof.events()
@@ -536,17 +578,18 @@ def profile_window(run, what: str, pad: int = PROFILER_PAD) -> tuple:
 
 def window_fault(n_launches: int, lost: list, pad: int) -> str | None:
     """The fault of a window of ``n_launches`` traced launches, ``pad`` pads
-    first and TAIL_PAD last, that lost the records of the launches at the
-    indices ``lost`` (ascending): None when the run between the pads
+    first and ``pad // 2`` last, that lost the records of the launches at
+    the indices ``lost`` (ascending): None when the run between the pads
     launched something and lost none of it."""
-    run = range(pad, n_launches - TAIL_PAD)
+    tail = pad // 2
+    run = range(pad, n_launches - tail)
     inside = [i for i in lost if i in run]
     if run and not inside:
         return None
     return (f"{n_launches} launches traced, {len(lost)} records lost, "
             f"{len(inside)} of them the run's, the last at launch "
             f"{lost[-1] if lost else None} (the pads are 0 to {pad - 1} and "
-            f"{n_launches - TAIL_PAD} to {n_launches - 1})")
+            f"{n_launches - tail} to {n_launches - 1})")
 
 
 def incomplete(what: str, fault: str) -> None:
@@ -3480,7 +3523,7 @@ def flash_unsplit(torch, q, k, v, pos, kv_valid):
     out = torch.empty_like(q)
     err = FK._library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), kv_valid.data_ptr(), None,
-        out.data_ptr(), None, b, sq, k.shape[1], hp, k.shape[2], hd, 1, 0, p["tokens"], 1,
+        out.data_ptr(), None, None, b, sq, k.shape[1], hp, k.shape[2], hd, 1, 0, p["tokens"], 1,
         p["key_tiles"], torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise AssertionError(f"flash launch failed with CUDA error {err}")
@@ -4900,6 +4943,695 @@ def time_paged_phase8(torch, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 3t and 9: staged decode, padded admission, and training
+# ---------------------------------------------------------------------------
+
+# Phase 3t: phase 3's first STAGED_REQUESTS requests on full-width
+# SmolLM-135M, (a) on dense device KV with a STAGED_WS-token staging ring
+# against the same trace unstaged, (b) admitted by left-padded whole-prompt
+# prefill (bit-plane device KV, phase 3's ladder, fused kernel) against
+# the same trace admitted by bucketed chunks
+STAGED_REQUESTS, STAGED_WS = 8, 16
+# the staged run is teacher-forced with the unstaged run's tokens, and
+# every decode row of the two runs (the same history) must agree within
+# this many bf16 steps of the unstaged row's largest logit: the two sum
+# each layer's attention in another order (the main cache's and the
+# ring's partials, then a merge), so a bf16 rounding of an attention
+# output can move a step in any of 30 layers (rows agreed within 0.0227
+# of their largest logit, about 3 to 6 steps, before this check forced
+# them); a row the ring folded wrong moves far more
+STAGED_ROW_STEPS = 8
+# Phase 9: training at full width.  9a: the flash backward against its
+# plain version at (name, B, Sq, Skv, Hp, Hkv, hd, causal, window,
+# kv_valid): SmolLM-135M's training shape, a 64-key window, Whisper-tiny's
+# encoder (1,500 frames of a 1,536-row key buffer) and its cross attention
+FLASH_BWD_CASES = (
+    ("smollm-135m train", 8, 2048, 2048, 9, 3, 64, True, 0, None),
+    ("window 64", 8, 2048, 2048, 9, 3, 64, True, 64, None),
+    ("whisper-tiny encoder", 8, 1500, 1536, 6, 6, 64, False, 0, 1500),
+    ("whisper-tiny cross", 8, 224, 1536, 6, 6, 64, False, 0, 1500),
+)
+# dq, dk and dv each within this many bf16 steps of its largest magnitude
+# (the float32 sums run in another order and exp is CUDA's expf, which can
+# flip one rounding of p or ds) and 1% in relative Frobenius norm
+FLASH_BWD_STEPS, FLASH_BWD_FROBENIUS = 2, 1e-2
+# 9b: SmolLM-135M, all 30 layers, make_train_step with TRAIN_MICRO
+# micro-batches of ShardedLoader batches of TRAIN_B x TRAIN_L; one step's
+# loss and gradients through the kernels against the same step through
+# the plain versions, then TRAIN_STEPS AdamW steps on one fixed batch
+TRAIN_B, TRAIN_L, TRAIN_MICRO, TRAIN_STEPS, TRAIN_LR = 8, 2048, 2, 10, 1e-3
+# kernels against plain over 30 layers of random weights: the loss within
+# 1e-3 relative, the global gradient norm within 2%, every leaf's cosine
+# at least 0.99 (the CPU tests hold the port to the reference at 3% and
+# 0.9995 per leaf at SMOKE depth)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_COSINE = 1e-3, 2e-2, 0.99
+# 9c: Whisper-tiny at full width, WHISPER_B x (1,500 frames + WHISPER_TEXT
+# tokens), WHISPER_TRAIN_STEPS steps on one batch
+WHISPER_TRAIN_STEPS = 3
+# 9d: TrainSupervisor with a CheckpointManager: (b)'s model, its top layer
+# and final norm trained (the rest frozen: the checkpoint then holds 3.5 M
+# bf16 parameters and their float32 moments, 35 MB, which the card's
+# NumPy lz4 (no zstandard there) writes in about 5 s; the whole model's
+# 1.35 GB would take minutes), SUPERVISOR_STEPS steps of SUPERVISOR_B x
+# TRAIN_L, a checkpoint every SUPERVISOR_EVERY, a SimulatedFailure at the
+# SUPERVISOR_FAIL call
+SUPERVISOR_STEPS, SUPERVISOR_EVERY, SUPERVISOR_FAIL, SUPERVISOR_B = 4, 2, 4, 2
+
+
+class _DecodeRows:
+    """Wraps ``model.decode`` (an instance attribute, removed on exit) to
+    keep, on the device, the logits row each decode step computes for a
+    request by the (request, output index) it produces (``rows``), and at
+    each request's last decode row layer 0's keys and values of its
+    tokens, a staging ring's rows put back after the main cache's
+    (``kv0``).  With ``force`` (request -> the greedy tokens of another
+    run) each row samples that run's token: greedy sampling takes the
+    row's argmax, so the logits returned to the scheduler carry +inf at
+    the forced token (the kept row is the model's own)."""
+
+    def __init__(self, torch, model, sched, force: dict | None = None):
+        self.torch, self.model, self.sched, self.force = torch, model, sched, force or {}
+        self.orig = model.decode
+        self.rows: dict = {}
+        self.kv0: dict = {}
+
+    def __enter__(self):
+        self.model.decode = self.decode
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.decode
+
+    def decode(self, params, token, cache, **kw):
+        logits, cache = self.orig(params, token, cache, **kw)
+        out = logits
+        for i, s in enumerate(self.sched._slots):
+            if s is None or s.prefilling:
+                continue
+            rid, j = s.req.rid, len(s.req.output) + 1
+            self.rows[(rid, j)] = logits[i]
+            forced = self.force.get(rid, ())
+            if j < len(forced):
+                out = logits.clone() if out is logits else out
+                out[i, forced[j]] = math.inf
+            if j == s.req.max_new_tokens:
+                self.kv0[rid] = self._layer0(cache, i)
+        return out, cache
+
+    def _layer0(self, cache, i: int) -> tuple:
+        n = int(cache["len"][i])
+        k, v = cache["k"][0, i, :n], cache["v"][0, i, :n]
+        if "sk" in cache:
+            base = int(cache["sbase"][i])
+            k = self.torch.cat([k[:base], cache["sk"][0, i, :n - base]])
+            v = self.torch.cat([v[:base], cache["sv"][0, i, :n - base]])
+        return k.clone(), v.clone()
+
+
+def serve_staged(torch, model, params, cfg, reqs, watch: bool = False,
+                 force: dict | None = None) -> dict:
+    """One phase-3t run: counts reset just before, read just after; the
+    staging windows each request folded back (from the backend's slots,
+    every step) and, with ``watch``, the run's decode rows under a
+    ``_DecodeRows`` (teacher-forced with ``force``)."""
+    from repro_torch.serving import ContinuousScheduler
+
+    sched = ContinuousScheduler(model, params, cfg, device=params["embed"]["table"].device)
+    for m in launch_modules():
+        m.reset_launches()
+    folded, rows = {}, None
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if watch:
+            rows = stack.enter_context(_DecodeRows(torch, model, sched, force))
+        for r in reqs:
+            sched.submit(r)
+        while sched.has_work():
+            sched.step()
+            ws = model.cfg.decode_staging
+            for st in sched.backend._slots.values():
+                if ws:
+                    folded[st.rid] = (st.stage_base - len(reqs[st.rid].prompt)) // ws
+        if sched.device.type == "cuda":
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for m in launch_modules() for k, v in m.LAUNCHES.items()}
+    if not all(r.done and not r.truncated and len(r.output) == r.max_new_tokens for r in reqs):
+        raise AssertionError("phase 3t: not every request completed")
+    # the scheduler (and its device cache) is not kept: later phases need
+    # the card's memory (phase 8c takes all 60 of LLaVA's layers only when
+    # 6 GiB stay free)
+    return {"reqs": reqs, "rep": sched.report(), "launches": launches,
+            "encodes": dict(sched.backend.page_encodes), "folded": folded, "wall": wall,
+            "rows": rows}
+
+
+def staged_agree(staged: dict, unstaged: dict) -> dict:
+    """3t (a)'s check of a staged run teacher-forced with an unstaged run's
+    tokens: the greedy tokens equal (the first, from the prefill, is not
+    forced); every decode row of the one within STAGED_ROW_STEPS bf16
+    steps of the other's at its largest logit; layer 0's keys and values
+    of every request equal bit for bit (layer 0's projections see the
+    same tokens in both runs, so a row the ring dropped, doubled or folded
+    to the wrong place shows here exactly).  Returns the rows' count, the
+    rows whose own argmax is the forced token (a row parts from it only
+    where its top two logits lie within twice the rows' difference), the
+    worst difference in steps and the requests whose layer 0 was held."""
+    import torch
+
+    a, b = staged["rows"], unstaged["rows"]
+    if [r.output for r in staged["reqs"]] != [r.output for r in unstaged["reqs"]]:
+        raise AssertionError("phase 3t: the staged run's greedy tokens differ from the "
+                             "unstaged run's it was forced with (the prefill's first token)")
+    if a.rows.keys() != b.rows.keys():
+        raise AssertionError(f"phase 3t: decode rows {sorted(a.rows.keys() ^ b.rows.keys())[:8]} "
+                             f"of one run only")
+    keys = sorted(b.rows)
+    got = torch.stack([a.rows[key] for key in keys])
+    want = torch.stack([b.rows[key] for key in keys])
+    steps = row_bf16_steps(got, want)
+    if not steps <= STAGED_ROW_STEPS:
+        raise AssertionError(f"phase 3t: a staged decode row lies {steps:.2f} bf16 steps from "
+                             f"the unstaged one (> {STAGED_ROW_STEPS})")
+    argmax = int((got.argmax(-1) == want.argmax(-1)).sum())
+    if a.kv0.keys() != b.kv0.keys() or not a.kv0:
+        raise AssertionError(f"phase 3t: layer 0 kept for requests {sorted(a.kv0)} and "
+                             f"{sorted(b.kv0)}")
+    bad = [rid for rid in b.kv0 if not all(torch.equal(x, y) for x, y in zip(a.kv0[rid],
+                                                                              b.kv0[rid]))]
+    if bad:
+        raise AssertionError(f"phase 3t: layer 0's keys or values of requests {bad} differ "
+                             f"between the staged and the unstaged cache")
+    return {"rows": len(keys), "argmax": argmax, "steps": steps, "kv0": len(b.kv0)}
+
+
+def run_staged_padded_phase(torch, model, params, n: int = STAGED_REQUESTS,
+                            max_batch: int = B, max_ctx: int = S, phase: str = "phase 3t",
+                            requests=None) -> dict:
+    """3t on ``model`` (SmolLM-135M at full width on the card): (a) the
+    paged backend with dense device KV, decode_staging STAGED_WS,
+    teacher-forced with the same trace's unstaged tokens (``staged_agree``),
+    every request folding at least two staging windows back,
+    no paged-attention, pack or unpack launch, flash once a layer a
+    prefill chunk; (b) prefill_mode="padded" with bit-plane device KV and
+    the fused kernel: flash once a layer a padded prefill, one encode a
+    page-writing span, the fused kernel once a layer a decode step, one
+    pack a layer a decode step and one an adoption; against a bucketed run
+    of the same trace, tok/s and prefill tokens."""
+    import dataclasses
+
+    from repro_torch.core.quantization import PrecisionLadder
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig
+
+    from repro_torch.serving.kv_cache import PAGE_TOKENS
+
+    make = requests or (lambda: make_requests(STAGED_REQUESTS)[:n])
+    n_layers = model.cfg.n_layers
+    on_card = params["embed"]["table"].device.type == "cuda"
+    # one stored layer (as phase 8's): the staged rows a page write reads
+    # come from any stored layer, and the tier's per-layer host work would
+    # otherwise dominate the four runs
+    dense = EngineConfig(max_batch=max_batch, max_ctx=max_ctx, ladder=PrecisionLadder(LADDER),
+                         codec="lz4", device_kv="dense", backend="paged", store_layers=1)
+    staged = build_model(dataclasses.replace(model.cfg, decode_staging=STAGED_WS))
+    runs = {"unstaged": serve_staged(torch, model, params, dense, make(), watch=True)}
+    runs["staged"] = serve_staged(torch, staged, params, dense, make(), watch=True,
+                                  force={r.rid: r.output for r in runs["unstaged"]["reqs"]})
+    agree = staged_agree(runs["staged"], runs["unstaged"])
+    for run in runs.values():
+        run["rows"] = None  # the rows' logits, freed
+    folded = runs["staged"]["folded"]
+    if len(folded) != n or min(folded.values()) < 2:
+        raise AssertionError(f"{phase}: staging windows folded a request {folded}, "
+                             f"expected 2 or more each")
+    for name, run in runs.items():
+        rep, launches = run["rep"], run["launches"]
+        if on_card:
+            # dense device KV: no paged kernel; the page writes still pack
+            # their planes (one pack an encode, inside encode_kv)
+            expect_launches(f"{phase} [{name}]", launches, {
+                "flash_attention": n_layers * rep["prefill_chunks"],
+                "paged_attention_fused": 0, "paged_attention_rung": 0,
+                "bitplane_pack": sum(run["encodes"].values()),
+                "exp_delta_encode": sum(run["encodes"].values())})
+        log(f"{phase} (a) [{name}]: {len(run['reqs'])} requests, {rep['decode_steps']} decode "
+            f"steps, {rep['prefill_chunks']} prefill chunks, decode {rep['decode_tokens']} tok "
+            f"at {rep['decode_tok_per_s']:.1f} tok/s, wall {run['wall']:.2f} s, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"{phase} (a): staged (ws {STAGED_WS}), teacher-forced with the unstaged run's "
+        f"tokens: greedy tokens equal; its {agree['rows']} decode rows within "
+        f"{agree['steps']:.2f} bf16 steps of the unstaged rows' largest logits (bound "
+        f"{STAGED_ROW_STEPS}), {agree['argmax']} of them with the forced token as their own "
+        f"argmax (the rest near ties); layer 0's keys and values equal bit for bit for all "
+        f"{agree['kv0']} requests; windows folded a request {folded}")
+
+    bitplane = dataclasses.replace(dense, device_kv="bitplane", decode_kernel="fused")
+    runs["padded"] = serve_staged(torch, model, params,
+                                  dataclasses.replace(bitplane, prefill_mode="padded"), make())
+    runs["bucketed"] = serve_staged(torch, model, params, bitplane, make())
+    rep, launches = runs["padded"]["rep"], runs["padded"]["launches"]
+    padded_lens = {-(-len(r.prompt) // PAGE_TOKENS) * PAGE_TOKENS for r in runs["padded"]["reqs"]}
+    if rep["prefill_tokens"] != sum(-(-len(r.prompt) // PAGE_TOKENS) * PAGE_TOKENS
+                                   for r in runs["padded"]["reqs"]) or \
+            rep["prefill_compiles"] != len(padded_lens) or rep["prefill_chunks"] != 0:
+        raise AssertionError(f"{phase} (b): padded prefill tokens {rep['prefill_tokens']}, "
+                             f"compiles {rep['prefill_compiles']}, chunks {rep['prefill_chunks']}")
+    if on_card:
+        steps = rep["decode_steps"]
+        expect_launches(f"{phase} [padded]", launches, {
+            "flash_attention": n_layers * n, "paged_attention_fused": n_layers * steps,
+            "paged_attention_rung": 0,
+            "exp_delta_encode": sum(runs["padded"]["encodes"].values()), "exp_delta_decode": 0})
+        # a pack a layer a decode step, one an adoption, one a page write
+        if launches["bitplane_pack"] < n_layers * steps + n:
+            raise AssertionError(f"{phase} [padded]: {launches['bitplane_pack']} packs, fewer "
+                                 f"than the decode steps' and the adoptions' {n_layers * steps + n}")
+    for name in ("padded", "bucketed"):
+        r = runs[name]["rep"]
+        log(f"{phase} (b) [{name}, bit-plane KV, fused]: prefill {r['prefill_tokens']} tokens "
+            f"in {r['prefill_s']:.3f} s ({r['prefill_chunks']} chunks, {r['prefill_compiles']} "
+            f"prefill shapes), decode {r['decode_tokens']} tok at {r['decode_tok_per_s']:.1f} "
+            f"tok/s, wall {runs[name]['wall']:.2f} s, kv_stored/logical "
+            f"{r['kv_stored_bytes']}/{r['kv_logical_bytes']}, launches "
+            f"{ {k: v for k, v in runs[name]['launches'].items() if v} }")
+    launch_sum = collections.Counter()
+    for run in runs.values():
+        launch_sum.update(run["launches"])
+    return {"runs": runs, "agree": agree, "folded": folded, "launches": dict(launch_sum)}
+
+
+@contextlib.contextmanager
+def plain_flash_train():
+    """Route the differentiable flash call's forward and backward through
+    their plain PyTorch versions on the card (the kernels' references), for
+    one comparison: the wrappers ``ops.FlashAttention`` calls are replaced
+    for the duration."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    saved = FK.flash_attention, FK.flash_attention_bwd
+
+    def forward(q, k, v, q_pos, kv_valid, *, causal, window, valid=None, kv_pos=None,
+                lse=False):
+        return FR.flash_attention_ref(q, k, v, q_pos=q_pos, kv_valid=kv_valid, causal=causal,
+                                      window=window, kv_pos=kv_pos, return_lse=lse)
+
+    def backward(q, k, v, out, dout, lse, q_pos, kv_valid, *, causal, window):
+        return FR.flash_attention_bwd_ref(q, k, v, out, dout, lse, q_pos=q_pos,
+                                          kv_valid=kv_valid, causal=causal, window=window)
+
+    FK.flash_attention, FK.flash_attention_bwd = forward, backward
+    try:
+        yield
+    finally:
+        FK.flash_attention, FK.flash_attention_bwd = saved
+
+
+def flash_bwd_case(torch, dev, case: tuple, seed: int = 9) -> tuple:
+    """Random inputs of one FLASH_BWD_CASES case: q, k, v, dout, q_pos,
+    kv_valid (all rows valid up to kv_valid, or causal to the query)."""
+    _, b, sq, skv, hp, hkv, hd, causal, window, valid = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v, dout = randn(b, sq, hp, hd), randn(b, skv, hkv, hd), randn(b, skv, hkv, hd), \
+        randn(b, sq, hp, hd)
+    pos = torch.arange(sq, dtype=torch.int32, device=dev)[None].expand(b, sq).contiguous()
+    kv_valid = torch.full((b,), sq if valid is None else valid, dtype=torch.int32, device=dev)
+    return q, k, v, dout, pos, kv_valid
+
+
+def bf16_steps_of_max(got, want) -> float:
+    """The largest difference in bf16 steps of ``want``'s largest magnitude."""
+    w = want.float()
+    return float((got.float() - w).abs().max()) / bf16_step(w)
+
+
+def check_flash_bwd(torch, dev, cases=FLASH_BWD_CASES, phase: str = "phase 9a") -> dict:
+    """9a: at each case, the forward's lse (kernel) against the plain
+    forward's, and the backward kernel's dq, dk and dv against the plain
+    backward's from the same (out, lse): each within FLASH_BWD_STEPS bf16
+    steps of its largest magnitude and FLASH_BWD_FROBENIUS in relative
+    Frobenius norm.  Returns the worst steps and the first case's inputs
+    and largest absolute error."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    out = {}
+    with uncounted():
+        for case in cases:
+            name, causal, window = case[0], case[7], case[8]
+            q, k, v, dout, pos, kv = flash_bwd_case(torch, dev, case)
+            o, lse = FR.flash_attention_ref(q, k, v, q_pos=pos, kv_valid=kv, causal=causal,
+                                            window=window, return_lse=True)
+            o = o.contiguous()
+            _, k_lse = FK.flash_attention(q, k, v, pos, kv, causal=causal, window=window,
+                                          lse=True)
+            got = FK.flash_attention_bwd(q, k, v, o, dout, lse, pos, kv, causal=causal,
+                                         window=window)
+            want = FR.flash_attention_bwd_ref(q, k, v, o, dout, lse, q_pos=pos, kv_valid=kv,
+                                              causal=causal, window=window)
+            torch.cuda.synchronize()
+            steps = [bf16_steps_of_max(g, w) for g, w in zip(got, want)]
+            frob = [float((g.float() - w.float()).norm() / w.float().norm())
+                    for g, w in zip(got, want)]
+            lse_err = float((k_lse - lse).abs().max())
+            err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+            log(f"{phase} [{name}]: B {case[1]}, Sq {case[2]}, Skv {case[3]}, {case[4]}/{case[5]} "
+                f"heads of {case[6]}, {'causal' if causal else 'bidirectional'}"
+                f"{f', window {window}' if window else ''}: dq, dk, dv within {steps} bf16 steps "
+                f"of their largest, relative Frobenius {[round(f, 5) for f in frob]}, max abs "
+                f"{err:.3e}; the forward's lse within {lse_err:.2e} of plain")
+            if max(steps) > FLASH_BWD_STEPS or max(frob) > FLASH_BWD_FROBENIUS or lse_err > 1e-3:
+                raise AssertionError(f"{phase} [{name}]: the backward kernel disagrees")
+            out[name] = {"steps": max(steps), "frobenius": max(frob), "max_abs_err": err,
+                         "lse_err": lse_err}
+    return out
+
+
+def time_flash_bwd(torch, dev, checks: dict, train: dict) -> dict:
+    """The backward kernel's row at SmolLM-135M's training shape: CUDA
+    events and profiler device time (its three kernels a call), the plain
+    backward's, the bound (five products of 2 hd operations over the
+    visible pairs at the bf16 tensor-core peak, against q, k, v, out, dout
+    and lse read once and dq, dk, dv written once), SDPA's forward and
+    backward (``enable_gqa``, causal; a yardstick the port never calls)
+    and the kernels' own forward (with lse) and backward beside it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    case = FLASH_BWD_CASES[0]
+    _, b, sq, skv, hp, hkv, hd, causal, window, _ = case
+    q, k, v, dout, pos, kv = flash_bwd_case(torch, dev, case)
+    with uncounted():
+        o, lse = FK.flash_attention(q, k, v, pos, kv, causal=True, window=0, lse=True)
+        run = lambda i: FK.flash_attention_bwd(q, k, v, o, dout, lse, pos, kv,  # noqa: E731
+                                               causal=True, window=0)
+        plain = lambda i: FR.flash_attention_bwd_ref(q, k, v, o, dout, lse, q_pos=pos,  # noqa: E731
+                                                     kv_valid=kv)
+
+        def both(i):
+            o2, l2 = FK.flash_attention(q, k, v, pos, kv, causal=True, window=0, lse=True)
+            return FK.flash_attention_bwd(q, k, v, o2, dout, l2, pos, kv, causal=True, window=0)
+
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        dt = dout.transpose(1, 2).contiguous()
+
+        def lib(i):
+            y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(y, (qt, kt, vt), dt)
+
+        per_call = kernels_per_call(run, "flash_attention_bwd")
+        k_ms = cuda_time_ms(run, iters=10)
+        k_dev = device_ms(run, "flash_attention_bwd", 10, per_call)
+        p_ms, p_dev = cuda_time_ms(plain, iters=2, warmup=1), device_ms(plain, "", 2)
+        both_ms = cuda_time_ms(both, iters=10)
+        lib_ms, lib_dev = cuda_time_ms(lib, iters=10), device_ms(lib, "", 10)
+    fwd_flops = flash_work(pos, kv, hp, hd, causal=True, window=0)
+    flops = fwd_flops // 2 * 5  # five products of 2 hd operations a visible pair
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+    lib_bound, _ = bound_ms(2 * (5 * q.numel() + 4 * k.numel()), flops + fwd_flops,
+                            BF16_TENSOR_FLOPS)
+    log(f"phase 6: flash_attention_bwd {k_ms:.4f} / {k_dev:.4f} ms (events / device, "
+        f"{per_call} kernels a call) at B={b} L={sq} {hp}/{hkv} heads of {hd} causal: bound "
+        f"{b_ms:.4f} ms by {b_by} ({flops} bf16 operations, {nbytes} B), {b_ms / k_dev:.3f} of "
+        f"the bound; plain {p_ms:.4f} / {p_dev:.4f} ms; the kernels' forward (lse) and backward "
+        f"{both_ms:.4f} ms; SDPA forward and backward {lib_ms:.4f} / {lib_dev:.4f} ms "
+        f"(their bound {lib_bound:.4f}); kernels against SDPA {both_ms / lib_ms:.2f}x")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:148",
+            "replaces_note": "the reference's custom VJP _flash_bwd; no Pallas kernel",
+            "launches": train["launches"]["flash_attention_bwd"],
+            "launches_per_train_step": train["launches"]["flash_attention_bwd"],
+            "kernels_per_call": per_call,
+            "max_abs_err": checks[case[0]]["max_abs_err"],
+            "bf16_steps": max(c["steps"] for c in checks.values()),
+            "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms, "plain_device_ms": p_dev,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_flops": flops, "bound_bytes": nbytes,
+            "forward_and_backward_ms": both_ms,
+            "library_ms": lib_ms, "library_device_ms": lib_dev,
+            "library": "torch.nn.functional.scaled_dot_product_attention forward and backward",
+            "cases": checks}
+
+
+def _to(batch: dict, dev) -> dict:
+    import torch
+
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def _grad_compare(torch, got: dict, want: dict) -> dict:
+    """Global norms and the worst per-leaf cosine of two gradient trees."""
+    from repro_torch.optim.grad_utils import global_norm
+    from repro_torch.tree import leaves_with_paths
+
+    worst = (math.inf, "")
+    for (path, g), (_, w) in zip(leaves_with_paths(got), leaves_with_paths(want)):
+        g, w = g.float().flatten(), w.float().flatten()
+        cos = float(torch.dot(g, w) / (g.norm() * w.norm()).clamp(min=1e-30))
+        worst = min(worst, (cos, "/".join(path)))
+    return {"norm": float(global_norm(got)), "plain_norm": float(global_norm(want)),
+            "cosine": worst[0], "worst_leaf": worst[1]}
+
+
+def train_corpus(vocab: int, n: int = 2_000_000):
+    """The reference's synthetic Zipf corpus (``n`` tokens, seed 0) over
+    ``vocab``.  It takes seconds of host time, so phases 9b, 9c and 9d
+    share one: SmolLM-135M's (its tokens lie below Whisper-tiny's
+    vocabulary too)."""
+    from repro_torch.data import DataConfig, synthetic_corpus
+
+    return synthetic_corpus(DataConfig(vocab=vocab, seq_len=1, global_batch=1), n)
+
+
+def run_training_phase(torch, dev, corpus, smoke: bool = False, b: int = TRAIN_B,
+                       l: int = TRAIN_L, n_micro: int = TRAIN_MICRO, steps: int = TRAIN_STEPS,
+                       phase: str = "phase 9b") -> dict:
+    """9b: SmolLM-135M (all 30 layers) through ``make_train_step``: one
+    step's loss and gradients (``accumulate_grads`` over ``n_micro``
+    micro-batches of a ShardedLoader batch of b x l), counts reset just
+    before and read just after (flash forward and backward once a layer a
+    micro-batch), against the same step through the plain versions; a
+    profiler window over one training step (host and device ms, tokens/s);
+    then ``steps`` AdamW steps on that batch (warmup 1), whose loss must
+    fall."""
+    from repro_torch.data import DataConfig, ShardedLoader
+    from repro_torch.launch import make_train_step
+    from repro_torch.optim import AdamWConfig, accumulate_grads, adamw_init
+
+    model, params = family_model(torch, dev, "smollm-135m", smoke)
+    cfg = model.cfg
+    loader = ShardedLoader(DataConfig(vocab=cfg.vocab, seq_len=l, global_batch=b),
+                           corpus=corpus)
+    batch = _to(loader.batch_at(0), dev)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    for m in launch_modules():
+        m.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = accumulate_grads(model.loss, params, batch, n_micro)
+    sync()
+    first_s = time.perf_counter() - t0
+    launches = {k: v for m in launch_modules() for k, v in m.LAUNCHES.items()}
+    if on_card:
+        expect_launches(phase, launches, {"flash_attention": cfg.n_layers * n_micro,
+                                          "flash_attention_bwd": cfg.n_layers * n_micro})
+    with uncounted(), plain_flash_train():
+        p_loss, p_grads = accumulate_grads(model.loss, params, batch, n_micro)
+    cmp = _grad_compare(torch, grads, p_grads)
+    del grads, p_grads
+    log(f"{phase}: {cfg.name}, {cfg.n_layers} layers, {n_micro} micro-batches of "
+        f"{b // n_micro} x {l}: loss {float(loss):.6f} through the kernels, "
+        f"{float(p_loss):.6f} plain; gradient norm {cmp['norm']:.6f} against "
+        f"{cmp['plain_norm']:.6f}; worst leaf cosine {cmp['cosine']:.6f} ({cmp['worst_leaf']}); "
+        f"launches {dict((k, v) for k, v in launches.items() if v)}; first step {first_s:.2f} s")
+    if not (abs(float(loss) - float(p_loss)) <= TRAIN_LOSS_RTOL * abs(float(p_loss))
+            and abs(cmp["norm"] - cmp["plain_norm"]) <= TRAIN_GNORM_RTOL * cmp["plain_norm"]
+            and cmp["cosine"] >= TRAIN_COSINE):
+        raise AssertionError(f"{phase}: the step through the kernels parts from the plain one")
+
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps),
+                           n_micro)
+    state = adamw_init(params)
+    device_ms = None
+    if on_card:
+        rows = device_rows(lambda: step(params, state, batch), f"{phase} one training step",
+                           repeatable=True)
+        device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    losses, times = [], []
+    p = params
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        p, state, met = step(p, state, batch)
+        losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t0)
+    host_ms = 1e3 * sum(times[1:]) / max(1, len(times) - 1)
+    log(f"{phase}: {steps} AdamW steps on one batch (lr {TRAIN_LR}, warmup 1): losses "
+        f"{[round(x, 4) for x in losses]}; host {host_ms:.1f} ms a step, device "
+        f"{'not measured' if device_ms is None else f'{device_ms:.1f} ms'} a step (one profiler "
+        f"window), {b * l / host_ms * 1e3:.0f} tokens/s")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
+    return {"launches": launches, "loss": float(loss), "plain_loss": float(p_loss), **cmp,
+            "losses": losses, "host_ms": host_ms, "device_ms": device_ms,
+            "tokens_per_s": b * l / host_ms * 1e3, "model": model, "params": params}
+
+
+def run_whisper_training(torch, dev, corpus, smoke: bool = False, b: int = WHISPER_B,
+                         text: int = WHISPER_TEXT, steps: int = WHISPER_TRAIN_STEPS,
+                         phase: str = "phase 9c") -> dict:
+    """9c: Whisper-tiny through ``make_train_step`` on B ``b`` x (1,500
+    frames + ``text`` tokens), ``steps`` steps on one batch: losses finite
+    and falling; flash forward and backward once an attention sub-layer a
+    step."""
+    from repro_torch.data import DataConfig, ShardedLoader
+    from repro_torch.launch import make_train_step
+    from repro_torch.models.frontends import fake_frames
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    model, params = family_model(torch, dev, "whisper-tiny", smoke)
+    cfg = model.cfg
+    if int(corpus.max()) >= cfg.vocab:
+        raise ValueError(f"{phase}: the corpus holds tokens past the vocabulary {cfg.vocab}")
+    batch = _to(ShardedLoader(DataConfig(vocab=cfg.vocab, seq_len=text, global_batch=b),
+                              corpus=corpus).batch_at(0), dev)
+    batch["frames"] = fake_frames(torch.Generator(device=dev).manual_seed(5), cfg, b)
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps))
+    state = adamw_init(params)
+    for m in launch_modules():
+        m.reset_launches()
+    losses, t0 = [], time.perf_counter()
+    for _ in range(steps):
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+    wall = time.perf_counter() - t0
+    launches = {k: v for m in launch_modules() for k, v in m.LAUNCHES.items()}
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    if dev.type == "cuda":
+        expect_launches(phase, launches, {"flash_attention": n_attn * steps,
+                                          "flash_attention_bwd": n_attn * steps})
+    log(f"{phase}: {cfg.name} ({cfg.n_enc_layers} + {cfg.n_layers} layers, width "
+        f"{cfg.d_model}), B {b} x ({cfg.enc_seq} frames + {text} tokens): losses "
+        f"{[round(x, 4) for x in losses]} in {wall:.2f} s ({steps} steps); launches "
+        f"{dict((k, v) for k, v in launches.items() if v)}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
+    return {"losses": losses, "launches": launches, "wall": wall}
+
+
+def run_supervisor_phase(torch, model, params, tmp: str, corpus, b: int = SUPERVISOR_B,
+                         l: int = TRAIN_L, phase: str = "phase 9d") -> dict:
+    """9d: ``TrainSupervisor`` with a ``CheckpointManager`` on ``tmp`` over
+    (b)'s model, its top layer and final norm trained (the rest frozen),
+    SUPERVISOR_STEPS steps, a checkpoint every SUPERVISOR_EVERY and a
+    ``SimulatedFailure`` at call SUPERVISOR_FAIL: one recovery, from the last
+    checkpoint; the batches replayed exactly once (the loader's state is
+    one integer); every restored tree equal, bit for bit, to the tree that
+    was saved; each save's and load's seconds with the card's default
+    codec."""
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+    from repro_torch.compression import default_codec
+    from repro_torch.data import DataConfig, ShardedLoader
+    from repro_torch.launch import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.fault_tolerance import SimulatedFailure, TrainSupervisor
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = model.cfg
+    top = cfg.n_layers - 1
+    frozen = tree_map(lambda t: t[:top].detach(), params["layers"])
+    trainable = {"layer": tree_map(lambda t: t[top].detach().clone(), params["layers"]),
+                 "final_norm": tree_map(lambda t: t.detach().clone(), params["final_norm"])}
+
+    class TopLayer:
+        """The model with its top layer and final norm taken from the
+        trained tree."""
+
+        @staticmethod
+        def loss(tp, batch):
+            layers = tree_map(lambda f, t: torch.cat([f, t[None]]), frozen, tp["layer"])
+            return model.loss({**params, "layers": layers, "final_norm": tp["final_norm"]},
+                              batch)
+
+    train = make_train_step(TopLayer, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                                  total_steps=SUPERVISOR_STEPS))
+    dev = params["embed"]["table"].device
+    seen, calls, saved, timing = [], {"n": 0}, {}, {"save_s": [], "load_s": []}
+
+    def step_fn(state, batch):
+        calls["n"] += 1
+        if calls["n"] == SUPERVISOR_FAIL:
+            raise SimulatedFailure(f"injected at call {SUPERVISOR_FAIL}")
+        seen.append(batch["tokens"][:, :8].copy())
+        p, opt, met = train(state["params"], state["opt"], _to(batch, dev))
+        return {"params": p, "opt": opt}, met
+
+    class Manager(CheckpointManager):
+        def maybe_save(self, step, tree, extra=None):
+            t0 = time.perf_counter()
+            path = super().maybe_save(step, tree, extra)
+            if path is not None:
+                timing["save_s"].append(time.perf_counter() - t0)
+                saved[step] = [t.detach().cpu().clone() for t in leaves(tree)]
+            return path
+
+        def restore_latest(self, tree_like):
+            t0 = time.perf_counter()
+            tree, extra, step = super().restore_latest(tree_like)
+            if tree is not None:
+                timing["load_s"].append(time.perf_counter() - t0)
+                check_bits(f"{phase} restore of step {step}", leaves(tree), saved[step])
+            return tree, extra, step
+
+    def check_bits(what, got, want):
+        def bits(t):
+            return t.detach().cpu().reshape(-1).view(torch.uint8)
+
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(bits(g), bits(w)):
+                raise AssertionError(f"{what}: a leaf differs from the saved one")
+
+    loader = ShardedLoader(DataConfig(vocab=cfg.vocab, seq_len=l, global_batch=b, seed=1),
+                           corpus=corpus)
+    mgr = Manager(tmp, every_steps=SUPERVISOR_EVERY)
+    sup = TrainSupervisor(step_fn, loader, mgr, max_restarts=1)
+    init = {"params": trainable, "opt": adamw_init(trainable)}
+    t0 = time.perf_counter()
+    state, step = sup.run(init, SUPERVISOR_STEPS)
+    wall = time.perf_counter() - t0
+    final, extra = load_checkpoint(f"{tmp}/step_{step:010d}", init)
+    check_bits(f"{phase} the last checkpoint", leaves(final), [t.detach().cpu() for t in leaves(state)])
+    # the loader steps whose batches the successful calls consumed: steps
+    # before the failing call, then, from the checkpoint before it, the
+    # lost steps again, each once
+    fail_step = SUPERVISOR_FAIL - 1
+    resume = fail_step // SUPERVISOR_EVERY * SUPERVISOR_EVERY
+    lineage = list(range(fail_step)) + list(range(resume, SUPERVISOR_STEPS))
+    want = [loader.batch_at(s)["tokens"][:, :8] for s in lineage]
+    if step != SUPERVISOR_STEPS or sup.restarts != 1 or extra != {"loader": {"step": step}} \
+            or len(seen) != len(want) or not all((a == w).all() for a, w in zip(seen, want)):
+        raise AssertionError(f"{phase}: step {step}, restarts {sup.restarts}, loader {extra}, "
+                             f"{len(seen)} batches consumed, expected loader steps {lineage}")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(init))
+    log(f"{phase}: TrainSupervisor over {cfg.name}'s top layer and final norm "
+        f"({sum(t.numel() for t in leaves(trainable))} parameters, checkpoint of {nbytes} B "
+        f"with codec {default_codec()}): {SUPERVISOR_STEPS} steps of {b} x {l}, a "
+        f"SimulatedFailure at call {SUPERVISOR_FAIL}, {sup.restarts} recovery from step "
+        f"{resume}, batches consumed in loader steps {lineage}; restored trees "
+        f"equal the saved ones bit for bit; saves {[round(s, 2) for s in timing['save_s']]} s, "
+        f"loads {[round(s, 2) for s in timing['load_s']]} s; wall {wall:.2f} s")
+    return {"wall": wall, **timing, "checkpoint_bytes": nbytes, "restarts": sup.restarts}
+
+
 def main() -> int:
     import torch
 
@@ -4972,6 +5704,8 @@ def main() -> int:
     mark("3c")
     sharded_runs = run_sharded_phase(torch, model, params, fused_reqs, paged_ledger)
     mark("3s")
+    staged = run_staged_padded_phase(torch, model, params)
+    mark("3t")
     prefix_runs = run_prefix_phase(torch, model, params)
     mark("3p")
     qs_launches = run_quickstart(torch)
@@ -4995,6 +5729,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("7")
     phase8 = run_phase8(torch, dev, mark)
+    flash_bwd_checks = check_flash_bwd(torch, dev)
+    mark("9a")
+    corpus = train_corpus(get_config("smollm-135m").vocab)
+    train = run_training_phase(torch, dev, corpus)
+    mark("9b")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        run_supervisor_phase(torch, train.pop("model"), train.pop("params"), tmp, corpus)
+    torch.cuda.empty_cache()
+    mark("9d")
+    whisper_train = run_whisper_training(torch, dev, corpus)
+    torch.cuda.empty_cache()
+    mark("9c")
 
     # phase 6, its parts marked 6.1 to 6.7
     kernels = time_kernels(torch, cache, keeps, errs, {
@@ -5021,6 +5767,10 @@ def main() -> int:
     for name, rows in time_paged_phase8(torch, dev).items():
         by_name[name]["phase8_shapes"] = rows
     mark("6.7 phase 8 shapes")
+    kernels.append(time_flash_bwd(torch, dev, flash_bwd_checks, train))
+    mark("6.8 flash backward")
+    train_launches = collections.Counter(train["launches"])
+    train_launches.update(whisper_train["launches"])
     for k in kernels:
         # the kernel's launches over phase 3p's three timed runs
         k["launches_phase_3p"] = sum(run["launches"].get(k["name"], 0)
@@ -5033,6 +5783,10 @@ def main() -> int:
         # over phase 8: 8a's and 8b's serving runs, 8c's and 8d's prefill
         # and decode steps
         k["launches_phase_8"] = phase8["launches"].get(k["name"], 0)
+        # phase 3t's four serving runs; phase 9b's step through the kernels
+        # and 9c's three Whisper steps
+        k["launches_phase_3t"] = staged["launches"].get(k["name"], 0)
+        k["launches_phase_9"] = train_launches.get(k["name"], 0)
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err"):
             if key == "library_ms" and k[key] is None and k.get("library") == "none":
                 continue  # no single PyTorch call computes this function
@@ -5045,7 +5799,7 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched on its main path")
     log(f"profiler: {len(WINDOW_LOSSES)} windows lost {WINDOW_LOSSES} device records each "
         f"(a repeatable run's first window opens with {REPEATABLE_PAD} pad kernels, the others "
-        f"with {PROFILER_PAD}; each closes with {TAIL_PAD}); they took "
+        f"with {PROFILER_PAD}; each closes with half as many); they took "
         f"{sum(WINDOW_SECONDS):.1f} s of host time, the longest {max(WINDOW_SECONDS):.2f} s")
     if INCOMPLETE_WINDOWS:
         raise AssertionError(f"profiler windows lost launches: {INCOMPLETE_WINDOWS}")
@@ -5064,6 +5818,11 @@ def main() -> int:
         f"({phase8['8c']['layers']} layers) prefill {phase8['8c']['prefill_ms']:.2f} ms, decode "
         f"{phase8['8c']['decode_ms']:.2f} ms/step; whisper-tiny prefill "
         f"{phase8['8d']['prefill_ms']:.2f} ms, decode {phase8['8d']['decode_ms']:.3f} ms/step; "
+        f"phase 3t staged {staged['runs']['staged']['rep']['decode_tok_per_s']:.1f} (unstaged "
+        f"{staged['runs']['unstaged']['rep']['decode_tok_per_s']:.1f}), padded "
+        f"{staged['runs']['padded']['rep']['decode_tok_per_s']:.1f} (bucketed "
+        f"{staged['runs']['bucketed']['rep']['decode_tok_per_s']:.1f}); smollm-135m training "
+        f"{train['host_ms']:.1f} ms a step, {train['tokens_per_s']:.0f} tokens/s; "
         f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

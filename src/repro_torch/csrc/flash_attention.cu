@@ -13,11 +13,18 @@
 // p rounded to bf16 before p . v, as the reference does.  With kv_pos (a
 // sliding-window ring cache's slots, models/attention.py _ring_chunk_append)
 // the tests read key j's absolute position kv_pos[b, j] in place of j, and
-// a negative position (an unfilled slot) is masked too.
+// a negative position (an unfilled slot) is masked too.  Where the caller
+// asks for it (a forward that autograd will differentiate), the kernel also
+// writes each row's log-sum-exp, lse = m + log(sum_j exp(s_j - m)) in
+// natural units, float32 (B, Hp, Sq): the residual the backward
+// (flash_attention_bwd.cu) rebuilds p from, as the reference's _flash_fwd
+// saves it.  With the keys split, the merge kernel writes it from the same
+// max and sum it merges the output with.
 //
 // Layouts (the reference's, unchanged), contiguous:
 //   q (B, Sq, Hp, hd) bf16   k, v (B, Skv, Hkv, hd) bf16   out like q
 //   q_pos (B, Sq) int32      kv_valid (B,) int32   kv_pos (B, Skv) int32 or null
+//   lse (B, Hp, Sq) float32 or null
 // hd is a multiple of 16 up to 128; Sq and Skv are any length (ragged edges
 // are masked here, nothing is padded in device memory).
 //
@@ -123,6 +130,7 @@ constexpr int kMergeWarps = 8;
 constexpr long long kGroupBytes = 24ll << 20;  // K and V of a group of units: half of L2
 constexpr float kNegInf = -1e30f;
 constexpr double kLog2e = 1.4426950408889634;
+constexpr float kLn2 = 0.6931471805599453f;
 static_assert((1 + 4 * kMaxStages) * 8 + 4 <= kBarrierBytes, "the mbarriers and a word fit");
 
 struct Params {
@@ -131,6 +139,7 @@ struct Params {
   const int* kv_valid;
   const int* kv_pos;  // null: a key's position is its index
   bf16* out;
+  float* lse;  // null, or (B, Hp, Sq): each row's log-sum-exp in natural units
   float* ws;  // splits > 1: acc (splits, rows, hd), then (m, l) pairs (splits, rows)
   int B, Sq, Skv, Hp, Hkv, rep;
   int tokens;  // tokens a block: kRows / rep
@@ -674,6 +683,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row >= rows) continue;
     const size_t grow = ((size_t)b * p.Sq + t0 + row / p.rep) * p.Hp + g * p.rep + row % p.rep;
     if (p.splits == 1) {
+      if (p.lse != nullptr && tq == 0)  // m is in log2 units
+        p.lse[((size_t)b * p.Hp + g * p.rep + row % p.rep) * p.Sq + t0 + row / p.rep] =
+            m[i2] * kLn2 + logf(fmaxf(l[i2], 1e-30f));
       const float inv = 1.f / fmaxf(l[i2], 1e-30f);
       bf16* dst = p.out + grow * HD + 2 * tq;
 #pragma unroll
@@ -697,11 +709,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Merges the splits' partials of each row: one warp a row, 4 columns a lane,
 // splits in order; a split with l = 0 saw no tile and is left out, and a
-// row no split saw is 0.
+// row no split saw is 0.  With lse, lane 0 writes the row's log-sum-exp from
+// the merged max and sum (rows are (b, token, head), lse is (b, head, token)).
 template <int HD>
 __global__ void __launch_bounds__(kMergeWarps * 32)
     flash_attention_merge_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
-                                 int rows_all, int splits) {
+                                 float* __restrict__ lse, int rows_all, int splits, int Sq,
+                                 int Hp) {
   const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32;
   const int c = 4 * (threadIdx.x % 32);
   if (row >= rows_all || c >= HD) return;
@@ -725,6 +739,10 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
     acc.w += w * a.w;
   }
   const float den = fmaxf(lsum, 1e-30f);
+  if (lse != nullptr && c == 0) {
+    const int h = row % Hp, t = row / Hp % Sq, b = row / Hp / Sq;
+    lse[((size_t)b * Hp + h) * Sq + t] = mmax * kLn2 + logf(den);
+  }
   uint2 v;
   v.x = pack_bf16(acc.x / den, acc.y / den);
   v.y = pack_bf16(acc.z / den, acc.w / den);
@@ -771,8 +789,9 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int hd, i
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* q_pos, const void* kv_valid,
-           const void* kv_pos, void* out, void* ws, int B, int Sq, int Skv, int Hp, int Hkv, int causal, int window,
-           int tokens, int splits, int tiles_per_split, cudaStream_t stream) {
+           const void* kv_pos, void* out, void* lse, void* ws, int B, int Sq, int Skv, int Hp,
+           int Hkv, int causal, int window, int tokens, int splits, int tiles_per_split,
+           cudaStream_t stream) {
   using L = Smem<HD>;
   const int rep = Hp / Hkv;
   if (tokens < 1 || tokens * rep > kRows || splits < 1 || tiles_per_split < 1 ||
@@ -789,6 +808,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos, const
   p.kv_valid = static_cast<const int*>(kv_valid);
   p.kv_pos = static_cast<const int*>(kv_pos);
   p.out = static_cast<bf16*>(out);
+  p.lse = static_cast<float*>(lse);
   p.ws = static_cast<float*>(ws);
   p.B = B;
   p.Sq = Sq;
@@ -819,7 +839,8 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos, const
   const int rows_all = B * Sq * Hp;
   flash_attention_merge_kernel<HD><<<(rows_all + kMergeWarps - 1) / kMergeWarps,
                                      kMergeWarps * 32, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<bf16*>(out), rows_all, splits);
+      static_cast<const float*>(ws), static_cast<bf16*>(out), static_cast<float*>(lse), rows_all,
+      splits, Sq, Hp);
   return (int)cudaGetLastError();
 }
 
@@ -831,16 +852,18 @@ extern "C" {
 // for a head_dim the kernel is not built for (a multiple of 16 up to 128) or
 // a plan it cannot take (kernel.py: plan gives tokens, splits and key tiles a
 // split; ws holds the splits' partials when splits > 1).  kv_pos is null, or
-// the keys' (B, Skv) int32 absolute positions.
+// the keys' (B, Skv) int32 absolute positions; lse is null, or (B, Hp, Sq)
+// float32 for each row's log-sum-exp.
 int flash_attention_launch(const void* q, const void* k, const void* v, const void* q_pos,
-                           const void* kv_valid, const void* kv_pos, void* out, void* ws, int B, int Sq, int Skv,
-                           int Hp, int Hkv, int hd, int causal, int window, int tokens,
-                           int splits, int tiles_per_split, void* stream) {
+                           const void* kv_valid, const void* kv_pos, void* out, void* lse,
+                           void* ws, int B, int Sq, int Skv, int Hp, int Hkv, int hd, int causal,
+                           int window, int tokens, int splits, int tiles_per_split,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(HD)                                                                      \
   case HD:                                                                                  \
-    return launch<HD>(q, k, v, q_pos, kv_valid, kv_pos, out, ws, B, Sq, Skv, Hp, Hkv, causal, \
-                      window, tokens, splits, tiles_per_split, s);
+    return launch<HD>(q, k, v, q_pos, kv_valid, kv_pos, out, lse, ws, B, Sq, Skv, Hp, Hkv,    \
+                      causal, window, tokens, splits, tiles_per_split, s);
   switch (hd) {
     FLASH_CASE(16)
     FLASH_CASE(32)

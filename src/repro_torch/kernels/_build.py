@@ -22,6 +22,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the sources with the longest builds, compiled with their kernels
+# optimised in parallel (one thread a core): their machine code is the
+# same either way, where the SSD and exponent-delta sources' is not
+SPLIT_COMPILE = frozenset({"flash_attention.cu", "flash_attention_bwd.cu",
+                           "paged_attention.cu"})
 
 
 def find_nvcc() -> str:
@@ -43,8 +48,13 @@ def library_path(source: str, extra: tuple = ()) -> Path:
     """Where ``csrc/<source>`` builds to under the current flags (and
     ``extra`` ones)."""
     src = CSRC / source
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS + extra).encode())
+    key = hashlib.sha256(src.read_bytes() + " ".join(_flags(source, extra)).encode())
     return BUILD_DIR / f"{src.stem}_{key.hexdigest()[:16]}.so"
+
+
+def _flags(source: str, extra: tuple) -> tuple:
+    split = ("-split-compile=0",) if source in SPLIT_COMPILE else ()
+    return NVCC_FLAGS + split + extra
 
 
 def build(source: str, extra: tuple = ()) -> tuple[Path, str]:
@@ -58,7 +68,7 @@ def build(source: str, extra: tuple = ()) -> tuple[Path, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / source)],
+        [find_nvcc(), *_flags(source, extra), "-o", str(tmp), str(CSRC / source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:

@@ -1,8 +1,12 @@
-"""Hand-written Hopper kernel for flash-attention prefill: the binding, the
-launch plan and the launch wrapper.
+"""Hand-written Hopper kernels for flash attention: the forward (prefill) and
+the backward (training), their bindings, the forward's launch plan and the
+launch wrappers.
 
-The CUDA C++ source is ``src/repro_torch/csrc/flash_attention.cu``, built
-at first use by :mod:`repro_torch.kernels._build`.  Nothing is built when
+The CUDA C++ sources are ``src/repro_torch/csrc/flash_attention.cu`` (the
+forward, which also writes each row's log-sum-exp when asked) and
+``src/repro_torch/csrc/flash_attention_bwd.cu`` (the backward: a delta
+pass, dK/dV, then dQ, one C call counted as one launch), built at first
+use by :mod:`repro_torch.kernels._build`.  Nothing is built when
 this module is imported.  The wrapper checks its inputs, allocates its
 output (and, when the keys are split, the partials' workspace) with
 ``torch.empty``, launches on the current stream, raises if the launch did
@@ -24,12 +28,13 @@ import torch
 from repro_torch.kernels._build import check, load, raise_on
 
 SOURCE = "flash_attention.cu"
+SOURCE_BWD = "flash_attention_bwd.cu"
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 
 #: launches since the last :func:`reset_launches`
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 #: query rows of a block, (token, query head) pairs: 128 // rep tokens
 #: times the rep query heads of one kv head (the source's kRows)
@@ -55,8 +60,17 @@ def reset_launches() -> None:
 def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_launch.argtypes = [p] * 8 + [i] * 11 + [p]
+    lib.flash_attention_launch.argtypes = [p] * 9 + [i] * 11 + [p]
     lib.flash_attention_launch.restype = i
+    return lib
+
+
+@functools.cache
+def _library_bwd() -> ctypes.CDLL:
+    lib = load(SOURCE_BWD)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_launch.argtypes = [p] * 12 + [i] * 8 + [p]
+    lib.flash_attention_bwd_launch.restype = i
     return lib
 
 
@@ -102,7 +116,7 @@ def plan(b: int, sq: int, skv: int, hp: int, hkv: int, hd: int,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, kv_valid: torch.Tensor, *,
                     causal: bool, window: int, valid: int | None = None,
-                    kv_pos: torch.Tensor | None = None) -> torch.Tensor:
+                    kv_pos: torch.Tensor | None = None, lse: bool = False):
     """q (B, Sq, Hp, hd) bf16; k/v (B, Skv, Hkv, hd) bf16 with Hp a
     multiple of Hkv and at most 128 q heads a kv head; q_pos (B, Sq)
     int32; kv_valid (B,) int32; kv_pos, optional, (B, Skv) int32: the
@@ -112,7 +126,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :data:`HEAD_DIMS`.  ``valid``, where the caller knows it on the host,
     bounds kv_valid and shapes the launch plan (a larger kv_valid still
     attends right, at the last split's pace); with kv_pos it must be None.
-    Returns (B, Sq, Hp, hd) bf16."""
+    Returns (B, Sq, Hp, hd) bf16; with ``lse``, (out, lse (B, Hp, Sq)
+    float32), each row's log-sum-exp for the backward."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
@@ -140,8 +155,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_pos is not None and valid is not None:
         raise ValueError("keys at their own positions take no bound on kv_valid")
     out = torch.empty((bsz, sq, hp, hd), dtype=torch.bfloat16, device=dev)
+    lse_t = torch.empty((bsz, hp, sq), dtype=torch.float32, device=dev) if lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse_t) if lse else out
     p = plan(bsz, sq, skv, hp, hkv, hd, valid)
     ws = None
     if p["splits"] > 1:
@@ -149,10 +165,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          device=dev)
     err = _library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_valid.data_ptr(),
-        None if kv_pos is None else kv_pos.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), bsz, sq, skv, hp, hkv, hd,
+        None if kv_pos is None else kv_pos.data_ptr(), out.data_ptr(),
+        None if lse_t is None else lse_t.data_ptr(), None if ws is None else ws.data_ptr(),
+        bsz, sq, skv, hp, hkv, hd,
         int(bool(causal)), int(window), p["tokens"], p["splits"], p["tiles_per_split"],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse_t) if lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                        q_pos: torch.Tensor, kv_valid: torch.Tensor, *, causal: bool,
+                        window: int) -> tuple:
+    """The backward of :func:`flash_attention` (keys at their indices): q,
+    out, dout (B, Sq, Hp, hd) bf16; k, v (B, Skv, Hkv, hd) bf16; lse (B,
+    Hp, Sq) float32 from the forward; q_pos (B, Sq) and kv_valid (B,)
+    int32; all contiguous, 16-byte aligned, on one CUDA device.  Returns
+    (dq, dk, dv) bf16 in q's, k's and v's shapes, dk and dv summed over
+    each kv head's query heads in the kernel.  Allocates the (B, Hp, Sq)
+    float32 delta workspace; one C call launches the three kernels and
+    counts one launch."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q (B, Sq, Hp, hd) and k (B, Skv, Hkv, hd), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    bsz, sq, hp, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS}")
+    if hkv == 0 or hp % hkv:
+        raise ValueError(f"{hp} q heads over {hkv} kv heads")
+    for name, t, dtype, shape in (
+            ("q", q, torch.bfloat16, (bsz, sq, hp, hd)),
+            ("k", k, torch.bfloat16, (bsz, skv, hkv, hd)),
+            ("v", v, torch.bfloat16, (bsz, skv, hkv, hd)),
+            ("out", out, torch.bfloat16, (bsz, sq, hp, hd)),
+            ("dout", dout, torch.bfloat16, (bsz, sq, hp, hd)),
+            ("lse", lse, torch.float32, (bsz, hp, sq)),
+            ("q_pos", q_pos, torch.int32, (bsz, sq)),
+            ("kv_valid", kv_valid, torch.int32, (bsz,))):
+        check(name, t, dtype, shape, dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((bsz, hp, sq), dtype=torch.float32, device=dev)
+    err = _library_bwd().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), q_pos.data_ptr(), kv_valid.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bsz, sq, skv, hp, hkv, hd,
+        int(bool(causal)), int(window), torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -1,4 +1,7 @@
-"""Step functions of the port: prefill and serve (the training step comes
-with the training slice)."""
+"""Step functions of the port: train, prefill and serve."""
 
-from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: F401
+from repro_torch.launch.steps import (  # noqa: F401
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+)

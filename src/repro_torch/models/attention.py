@@ -1,5 +1,5 @@
 """GQA attention for the dense transformer (port of the reference's
-``models/attention.py``: the parts the serving main path runs).
+``models/attention.py``).
 
 * q-heads may be padded (``cfg.pad_heads_to``); padded heads have zero
   ``wq`` rows and are masked before ``wo``.  Each q head reads kv head
@@ -9,7 +9,9 @@
   hand-written kernel on CUDA, its plain PyTorch version on the CPU (the
   reference runs a jnp online softmax here, whose TPU form is its Pallas
   flash kernel).  A one-token step over a dense cache runs
-  :func:`decode_attention`, as in the reference.
+  :func:`decode_attention`, as in the reference.  Training differentiates
+  through the same call: its backward is the hand-written flash backward
+  on CUDA, the reference's custom VJP (``_flash_bwd``) on the CPU.
 * A serving cache is either dense bf16 rows ``(k, v)`` or packed uint8
   bit-planes ``(k_planes, v_planes)`` of layout (bits, B, S, Hkv, hd//8).
   Bit-plane decode packs the new token and runs the paged-attention
@@ -22,6 +24,12 @@
   prefill chunk attends over [the ring's old entries] ++ [the chunk] with
   every key at its own position (the flash kernel's ``kv_pos``); decode
   folds the positions and the window into the paged kernels' mask.
+* A staged cache (``decode_staging`` > 0) is the dense (k, v) pair plus a
+  staging ring (sk, sv) of ws rows: a decode token lands in the ring, the
+  main cache stays read-only, and attention merges the two partials
+  (:func:`merge_attention_partials`); a full ring is folded back into the
+  main cache (per row under continuous batching, or by
+  ``transformer.flush_staging``).  Plain PyTorch, as in the reference.
 
 The reference rebuilds the cache functionally on every step; here the
 cache tensors are updated in place (each place says so), since a per-layer
@@ -80,7 +88,7 @@ def _scale(hd: int, device) -> torch.Tensor:
 
 
 def decode_attention(q, k, v, *, q_pos, kv_valid, window=0, kv_pos=None,
-                     bidirectional=False):
+                     bidirectional=False, return_partials=False):
     """Single-token attention over a dense cache (the reference's
     ``decode_attention``): q (B, 1, Hp, hd); k/v (B, Skv, Hkv, hd); kv_pos
     (B, Skv) the slots' absolute positions of a ring cache (-1 =
@@ -88,7 +96,9 @@ def decode_attention(q, k, v, *, q_pos, kv_valid, window=0, kv_pos=None,
     masked, and so are keys after q_pos unless ``bidirectional`` (an
     enc-dec model's cross attention over the encoder's frames); ``window``
     > 0 masks keys at or before q_pos - window.  GQA is a reshape of q
-    (grouped head layout); scores are float32."""
+    (grouped head layout); scores are float32.  ``return_partials``
+    returns the online-softmax partials (acc (B, 1, Hp, hd), m (B, Hp), l
+    (B, Hp)) float32 instead, for :func:`merge_attention_partials`."""
     b, sq, hp, hd = q.shape
     hkv = k.shape[2]
     rep = hp // hkv
@@ -109,8 +119,82 @@ def decode_attention(q, k, v, *, q_pos, kv_valid, window=0, kv_pos=None,
     p = torch.exp(s - m)
     l = p.sum(dim=-1)
     acc = torch.einsum("bkrs,bskd->bkrd", p.to(q.dtype).float(), v.float())
+    if return_partials:
+        return acc.reshape(b, 1, hp, hd), m.reshape(b, hp), l.reshape(b, hp)
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(b, 1, hp, hd).to(q.dtype)
+
+
+def merge_attention_partials(parts):
+    """Online-softmax partials [(acc, m, l), ...] (acc (B, 1, Hp, hd), m and
+    l (B, Hp), float32) -> the normalised output (B, 1, Hp, hd) float32,
+    merged in order, as the reference."""
+    o_all, m_all, l_all = parts[0]
+    for o, m, l in parts[1:]:
+        m_new = torch.maximum(m_all, m)
+        c_old = torch.exp(m_all - m_new)
+        c_new = torch.exp(m - m_new)
+        o_all = o_all * c_old[:, None, :, None] + o * c_new[:, None, :, None]
+        l_all = l_all * c_old + l * c_new
+        m_all = m_new
+    return o_all / torch.clamp(l_all, min=1e-30)[:, None, :, None]
+
+
+def _staged_step(q, k, v, cache, *, pos, cache_len, stage_base, window):
+    """One decode token against a staged cache (ck, cv, sk, sv), each
+    (B, ., Hkv, hd), IN PLACE (reference ``attn_apply``'s two staged
+    branches).  The main cache is read-only here; the token lands in the
+    staging ring and attention merges the main cache's partial (keys before
+    the ring's base) with the ring's (keys at their absolute positions).
+
+    Per-row lengths (continuous batching) take ``stage_base`` (B,): row i's
+    main cache holds [0, stage_base[i]), its ring [stage_base[i], len[i]];
+    its token lands at ring slot len - stage_base, and a row whose ring is
+    then full folds it back into rows [stage_base, stage_base + ws) of the
+    main cache.  Mid-prefill and idle rows arrive with stage_base == len
+    (the scheduler anchors staging at the prefill end), so their dummy token
+    sits at ring slot 0, masked for every real query.  One length for every
+    row (an aligned batch): the ring holds len % ws tokens and folding back
+    is :func:`~repro_torch.models.transformer.flush_staging`'s."""
+    ck, cv, sk, sv = cache
+    b, ws = sk.shape[0], sk.shape[1]
+    rows = torch.arange(b, device=q.device)
+    ln = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
+    if ln.dim() == 1:
+        if stage_base is None:
+            raise ValueError("per-row lengths on a staged cache need its 'sbase' row")
+        base = stage_base.to(torch.int32)
+        staged_n = ln - base
+        slot = torch.clamp(staged_n, 0, ws - 1).long()
+        # in place: the reference's sk.at[rows, slot].set(k[:, 0])
+        sk[rows, slot] = k[:, 0].to(sk.dtype)
+        sv[rows, slot] = v[:, 0].to(sv.dtype)
+        valid = ln + 1
+    else:
+        n = int(ln) % ws
+        base = (ln - n).expand(b)
+        # in place: the reference's dynamic_update_slice at len % ws
+        sk[:, n:n + 1] = k.to(sk.dtype)
+        sv[:, n:n + 1] = v.to(sv.dtype)
+        valid = ln + k.shape[1]
+    stage_pos = base[:, None] + torch.arange(ws, dtype=torch.int32, device=q.device)[None]
+    out = merge_attention_partials([
+        decode_attention(q, ck, cv, q_pos=pos, kv_valid=base, window=window,
+                         return_partials=True),
+        # stale ring slots of the previous window sit at positions past
+        # len and mask out
+        decode_attention(q, sk, sv, q_pos=pos, kv_valid=valid, window=window,
+                         kv_pos=stage_pos, return_partials=True),
+    ]).to(q.dtype)
+    if ln.dim() == 1:
+        full = (staged_n + 1 == ws).nonzero()[:, 0]
+        if full.numel():
+            # in place: the reference's where(flush, sk, ck) scatter at the
+            # rows' staged positions
+            idx = torch.clamp(stage_pos[full], 0, ck.shape[1] - 1).long()
+            ck[full[:, None], idx] = sk[full].to(ck.dtype)
+            cv[full[:, None], idx] = sv[full].to(cv.dtype)
+    return out
 
 
 def _ring_chunk_append(q, k, v, ck, cv, cpos, *, pos, cache_len: int,
@@ -202,7 +286,7 @@ def _bitplane_cache_step(q, k, v, cache, *, pos, cache_len, kv_planes,
 
 def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
                kv_planes=None, keeps=None, decode_kernel="fused",
-               append_valid=None):
+               append_valid=None, stage_base=None):
     """One attention sub-layer (reference ``attn_apply``: the ``cache=None``,
     dense per-row / prefill-append, ring and bit-plane branches).
 
@@ -219,15 +303,8 @@ def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
     Returns (y, new_kv) — new_kv is the projected (k, v) when cache is None.
     """
     window = cfg.attn_window
-    hp = params["wq"].shape[1]
-    d = x.shape[-1]
     b, s = x.shape[0], x.shape[1]
-    q = (x.reshape(b * s, d) @ params["wq"].reshape(d, -1)).reshape(b, s, hp, -1)
-    k = (x.reshape(b * s, d) @ params["wk"].reshape(d, -1)).reshape(b, s, cfg.n_kv_heads, -1)
-    v = (x.reshape(b * s, d) @ params["wv"].reshape(d, -1)).reshape(b, s, cfg.n_kv_heads, -1)
-    cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q, k, v = project_qkv(params, x, cfg, pos)
 
     new_kv = None
     if cache is None:
@@ -240,6 +317,12 @@ def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
                                    keeps=keeps, window=window,
                                    append_valid=append_valid,
                                    decode_kernel=decode_kernel)
+    elif len(cache) == 4:
+        if s != 1:
+            raise ValueError("a staged cache takes one decode token a row; prefill "
+                             "chunks append to the main cache")
+        out = _staged_step(q, k, v, cache, pos=pos, cache_len=cache_len,
+                           stage_base=stage_base, window=window)
     elif len(cache) == 3:
         ck, cv, cpos = cache
         w = ck.shape[1]
@@ -291,6 +374,25 @@ def attn_apply(params, x, cfg, *, pos, cache=None, cache_len=None,
             out = flash_ops.flash_attention(q, ck, cv, q_pos=pos, kv_valid=end,
                                             window=window)
 
-    out = mask_padded_heads(out, cfg)
-    y = out.reshape(b * s, -1) @ params["wo"].reshape(-1, d)
-    return y.reshape(b, s, d), new_kv
+    return project_out(params, out, cfg), new_kv
+
+
+def project_qkv(params, x, cfg, pos):
+    """x (B, S, d) -> q (B, S, Hp, hd), k and v (B, S, Hkv, hd): one bf16
+    product each, rotary embeddings on q and k at ``pos``."""
+    b, s, d = x.shape
+    flat = x.reshape(b * s, d)
+    q = (flat @ params["wq"].reshape(d, -1)).reshape(b, s, params["wq"].shape[1], -1)
+    k = (flat @ params["wk"].reshape(d, -1)).reshape(b, s, cfg.n_kv_heads, -1)
+    v = (flat @ params["wv"].reshape(d, -1)).reshape(b, s, cfg.n_kv_heads, -1)
+    cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def project_out(params, out, cfg):
+    """The attention output (B, S, Hp, hd) -> (B, S, d): padded heads
+    zeroed, then ``wo``."""
+    b, s = out.shape[:2]
+    d = params["wo"].shape[-1]
+    y = mask_padded_heads(out, cfg).reshape(b * s, -1) @ params["wo"].reshape(-1, d)
+    return y.reshape(b, s, d)

@@ -1,5 +1,5 @@
 """Carry the reference's JAX parameters (or any JAX pytree of arrays, such
-as a decode cache) across to the port, bit-exactly."""
+as a decode cache or an AdamW state) across to the port, bit-exactly."""
 
 from __future__ import annotations
 
@@ -25,3 +25,16 @@ def params_from_jax(np_params, device) -> dict:
     if isinstance(np_params, dict):
         return {k: params_from_jax(v, device) for k, v in np_params.items()}
     return _tensor(np.asarray(np_params), device)
+
+
+def opt_state_from_jax(np_state, device) -> dict:
+    """The reference's AdamW state {'m', 'v': trees of float32, 'step':
+    int32}, as NumPy (``jax.tree_util.tree_map(np.asarray, state)``) -> the
+    port's (:func:`repro_torch.optim.adamw_init`'s layout) on ``device``,
+    bit for bit, so that both sides can start from the same optimiser
+    state."""
+    out = {"m": params_from_jax(np_state["m"], device),
+           "v": params_from_jax(np_state["v"], device),
+           "step": torch.tensor(int(np.asarray(np_state["step"])), dtype=torch.int32,
+                                device=device)}
+    return out

@@ -22,7 +22,8 @@ The encoder's self attention and every attention of a prefill run through
 the flash kernel on the card (bidirectional ones with ``causal=False``);
 a one-token decode step attends through the plain
 :func:`~repro_torch.models.attention.decode_attention`, as the reference.
-The training loss comes with the training slice.
+The training loss (:func:`encdec_loss`) differentiates through the flash
+kernel's backward.
 """
 
 from __future__ import annotations
@@ -195,9 +196,23 @@ def _dec_stack(params: dict, cfg, x, pos, enc_out, cache=None, want_cache=False)
 
 
 def encdec_loss(params, cfg, batch):
-    raise NotImplementedError(
-        "encdec_loss is not ported yet: it comes with the training slice "
-        "(ROADMAP queue 1)")
+    """batch {'frames': (B, S_enc, d), 'tokens', 'labels': (B, S) int} ->
+    the scalar float32 training loss (reference ``encdec_loss``): the
+    encoder, the decoder over the token embeddings plus sinusoidal
+    positions, the final norm and
+    :func:`~repro_torch.models.transformer.chunked_ce` over the labels.
+    Every attention differentiates through the flash kernel's backward on
+    the card.  No rematerialisation, as the reference's stacks have none."""
+    from repro_torch.models.transformer import chunked_ce
+
+    enc_out = encode(params, cfg, batch["frames"])
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_apply(params["embed"], tokens.long())
+    x = x + sinusoidal_positions(s, cfg.d_model, device=x.device).to(x.dtype)[None]
+    x, _ = _dec_stack(params, cfg, x, _positions(b, s, x.device), enc_out)
+    x = rmsnorm(x, params["dec_final"], cfg.norm_eps)
+    return chunked_ce(x, _head_w(params), batch["labels"], cfg.vocab)
 
 
 def _logits(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,9 @@ token's k/v into the given cache's k/v rows in place (as the dense family
 does), so the cache must first be padded to the decode length
 (``models.model.prepare_decode_cache``).
 
-The training losses raise here (they come with the training slice).
+The training losses raise here: they need a backward of the SSD scan
+(``csrc/ssd.cu`` is forward only) and come with the SSD-backward training
+slice.
 """
 
 from __future__ import annotations
@@ -112,8 +114,9 @@ def _ssm_stack_seq(params: dict, cfg, x: torch.Tensor):
 
 def ssm_lm_loss(params, cfg, batch):
     raise NotImplementedError(
-        "ssm_lm_loss is not ported yet: it comes with the training slice "
-        "(ROADMAP queue 1)"
+        "ssm_lm_loss is not ported yet: it needs a backward of the SSD scan "
+        "(csrc/ssd.cu is forward only) and comes with the SSD-backward "
+        "training slice (ROADMAP queue 1)"
     )
 
 
@@ -201,8 +204,9 @@ def init_hybrid_params(cfg, generator: torch.Generator) -> dict:
 
 def hybrid_loss(params, cfg, batch):
     raise NotImplementedError(
-        "hybrid_loss is not ported yet: it comes with the training slice "
-        "(ROADMAP queue 1)"
+        "hybrid_loss is not ported yet: it needs a backward of the SSD scan "
+        "(csrc/ssd.cu is forward only) and comes with the SSD-backward "
+        "training slice (ROADMAP queue 1)"
     )
 
 

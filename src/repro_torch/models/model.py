@@ -10,6 +10,7 @@ Dense, MoE and VLM (:class:`Model`; a sliding-window config's cache is a
 ring; a VLM batch carries ``'patches'``):
 
     init(generator=None, device=None)                 -> params
+    loss(params, batch)                               -> scalar training loss
     prefill(params, batch)                            -> (last-token logits, cache)
     prefill_chunk(params, tokens, cache, slot, start, last_idx)
                                                       -> (logits, cache)
@@ -21,9 +22,14 @@ SSM (:class:`SSMModel`, Mamba2), hybrid (:class:`HybridModel`, Zamba2) and
 enc-dec (:class:`EncDecModel`, Whisper; a batch carries ``'frames'``):
 
     init(generator=None, device=None)                 -> params
+    loss(params, batch)                               -> scalar training loss
     prefill(params, batch)                            -> (last-token logits, cache)
     decode(params, token, cache)                      -> (logits, cache)
     init_cache(batch, max_len=None, device=None)      -> zeroed decode cache
+
+``loss`` is the training loss, differentiable with torch autograd (the
+flash kernel's backward on the card); the SSM and hybrid losses raise
+until the SSD scan has a backward.
 
 The hybrid's decode cache holds one dense KV cache per shared-block call
 and the enc-dec's a self-attention cache per decoder layer; both write a
@@ -69,6 +75,9 @@ class Model(torch.nn.Module):
 
     def init(self, generator: torch.Generator | None = None, device=None) -> dict:
         return T.init_lm_params(self.cfg, _generator(generator, device))
+
+    def loss(self, params, batch):
+        return T.lm_loss(params, self.cfg, batch)
 
     def prefill(self, params, batch):
         return T.lm_prefill(params, self.cfg, batch)

@@ -18,7 +18,10 @@ Protocol surface (what the scheduler calls — everything else is private):
 ========================  ===================================================
 ``ensure_cache()``        build/return the device decode cache
 ``cache`` (property)      get/set the device cache between model calls
-``sync_lens(lens)``       publish the per-slot true lengths to the cache
+``sync_lens``             publish the per-slot true lengths (and a staged
+                          cache's staging bases) to the cache
+``adopt_prefill``         padded admission: copy a one-sequence prefill
+                          cache into a slot
 ``max_prefill_bucket()``  largest chunk the backend's cache layout accepts
 ``bind_slot/retire``      slot lifecycle (retire cancels queued engine jobs
                           and drops the request's pages)
@@ -49,8 +52,13 @@ the layer weights block-compressed behind the controller and every step
 that computes streams one weight pass through the lane engine; compute
 keeps the resident weights, as in the reference.
 
-Staged decode caches (``decode_staging > 0``) are not ported: they raise
-in :meth:`KVBackend.check_model`.
+Staged decode caches (``decode_staging > 0``) serve on this backend with
+``device_kv="dense"``: the cache carries a staging ring and per-row
+staging bases (``'sbase'``), anchored at each slot's prefill end and
+advanced in lockstep with the device's folds; the tokens still in a ring
+are read from it where the tier copies or ranks a slot's rows.  Legacy
+padded admission (``prefill_mode="padded"``) copies a one-sequence prefill
+cache into a slot (:meth:`KVBackend.adopt_prefill`).
 """
 
 from __future__ import annotations
@@ -132,6 +140,10 @@ class SlotState:
     #: ring window slides past them (advancing bound_from_page)
     shared_pages: int = 0
     bound_from_page: int = 0
+    #: staged decode (``decode_staging > 0``): the first token living in the
+    #: slot's staging ring — the main cache holds [0, stage_base), the ring
+    #: [stage_base, len); mirrors the device 'sbase' row
+    stage_base: int = 0
 
 
 class MemTier:
@@ -295,10 +307,12 @@ class KVBackend(abc.ABC):
             raise NotImplementedError(
                 "sliding-window ring caches need backend='ring'"
             )
-        if mcfg.decode_staging > 0:
-            raise NotImplementedError(
-                f"decode_staging={mcfg.decode_staging}: staged decode caches "
-                f"come with the 'rest of serving' slice (ROADMAP queue 1)"
+        if mcfg.decode_staging > 0 and cfg.device_kv != "dense":
+            raise ValueError(
+                f"decode_staging={mcfg.decode_staging} with "
+                f"device_kv={cfg.device_kv!r} is not supported: the staging "
+                f"ring appends dense bf16 rows, so staged decode needs "
+                f"device_kv='dense'"
             )
         cls.check_device_kv(mcfg, cfg)
 
@@ -375,6 +389,9 @@ class KVBackend(abc.ABC):
                 cache = bitplane_cache_from_dense(cache, page_tokens=PAGE_TOKENS)
             cache["len"] = torch.zeros(self.cfg.max_batch, dtype=torch.int32,
                                        device=self.device)
+            if "sk" in cache:  # staged decode: per-row staging bases
+                cache["sbase"] = torch.zeros(self.cfg.max_batch, dtype=torch.int32,
+                                             device=self.device)
             self._cache = cache
         return self._cache
 
@@ -390,9 +407,44 @@ class KVBackend(abc.ABC):
             keeps |= {planes for _, planes in self.cfg.ladder.rungs}
         return tuple(sorted(keeps))
 
-    def sync_lens(self, lens) -> None:
-        self._cache["len"] = torch.as_tensor(np.asarray(lens, np.int32),
-                                             device=self.device)
+    def sync_lens(self, lens, stage_anchor) -> None:
+        """Publish the slots' lengths for the next decode step and, on a
+        staged cache, each row's staging base: windows of ws tokens
+        anchored at the row's prefill end (``stage_anchor``; -1 = no anchor,
+        an idle or mid-prefill row, whose base is its length)."""
+        lens = np.asarray(lens, np.int32)
+        self._cache["len"] = torch.as_tensor(lens, device=self.device)
+        if "sbase" in self._cache:
+            ws = self._cache["sk"].shape[2]
+            anchor = np.where(np.asarray(stage_anchor) >= 0, stage_anchor, lens)
+            base = anchor + ws * ((lens - anchor) // ws)
+            self._cache["sbase"] = torch.as_tensor(base.astype(np.int32),
+                                                   device=self.device)
+
+    def adopt_prefill(self, slot_id: int, pcache, s: int) -> None:
+        """Legacy padded admission: copy a one-sequence prefill cache
+        {'k', 'v': (L, 1, s', Hkv, hd)} into this slot's rows [0, s), IN
+        PLACE (the reference's ``.at[:, slot, :s].set``); the bit-plane
+        layout packs every layer's K and V on adoption, in one launch."""
+        cache = self.ensure_cache()
+        if self.device_kv == "bitplane":
+            # (L, bits, B, S, Hkv, hd8) -> the slot's (bits, L, S, Hkv, hd8) views
+            kp, vp = (cache[name][:, :, slot_id].movedim(1, 0)
+                      for name in ("k_planes", "v_planes"))
+            pack_kv_into(pcache["k"][:, 0, :s], pcache["v"][:, 0, :s], kp, vp, 0)
+            return
+        for name in ("k", "v"):
+            cache[name][:, slot_id, :s] = pcache[name][:, 0, :s].to(cache[name].dtype)
+
+    def _staged_rows(self, slot_id: int, t0: int, t1: int):
+        """Tokens of [t0, t1) that still live in a staged slot's ring: (first
+        token, ring slot, count), or None (no ring, or none of them)."""
+        st = self._slots.get(slot_id)
+        if "sk" not in self._cache or st is None:
+            return None
+        sb = st.stage_base
+        lo, hi = max(t0, sb), min(t1, sb + self._cache["sk"].shape[2])
+        return (lo, lo - sb, hi - lo) if hi > lo else None
 
     def max_prefill_bucket(self) -> int:
         """Largest prefill chunk the cache layout accepts (ring caches cap
@@ -446,6 +498,14 @@ class KVBackend(abc.ABC):
         else:
             dense = torch.stack([self._take_rows(self._cache[name][layers, slot_id], 1, t0, t1)
                                  for name in ("k", "v")])
+            staged = self._staged_rows(slot_id, t0, t1)
+            if staged is not None:
+                # staged decode: tokens >= stage_base still live in the
+                # staging ring, not the main cache — read them from there
+                lo, r0, n = staged
+                dense = dense.clone()
+                dense[:, :, lo - t0:lo - t0 + n] = torch.stack(
+                    [self._cache[name][layers, slot_id, r0:r0 + n] for name in ("sk", "sv")])
         return dense.reshape(2, -1, t, dense.shape[-2] * dense.shape[-1]) \
             .transpose(0, 1).view(torch.int16)
 
@@ -652,6 +712,9 @@ class KVBackend(abc.ABC):
         assign ladder planes and register the prompt's prefix once the
         prompt is complete."""
         self._note_compute()
+        if final and self.mcfg.decode_staging > 0:
+            # the prompt's KV landed in the main cache: staging anchors here
+            self._slots[slot_id].stage_base = end
         if not self.cfg.store_kv_compressed:
             return
         st = self._slots[slot_id]
@@ -675,9 +738,14 @@ class KVBackend(abc.ABC):
         just filled (and re-rank the ladder), then queue this step's
         decode-critical fetch traffic for the slot."""
         self._note_compute()
+        st = self._slots[slot_id]
+        ws = self.mcfg.decode_staging
+        if ws > 0 and ln - st.stage_base >= ws:
+            # the device step just folded a full staging window back into
+            # the main cache: advance the host mirror in lockstep
+            st.stage_base += ws
         if not self.cfg.store_kv_compressed:
             return
-        st = self._slots[slot_id]
         self._expire_dead_pages(st, ln)
         if ln % PAGE_TOKENS == 0:  # a decode page just filled
             self._write_span(slot_id, ln - PAGE_TOKENS, ln)
@@ -808,7 +876,14 @@ class KVBackend(abc.ABC):
         """Last-layer device keys for tokens [t0, t1), (t, Hkv, hd) bf16 —
         the quest ranking input, identical between layouts."""
         if self.device_kv != "bitplane":
-            return self._take_rows(self._cache["k"][-1, slot_id], 0, t0, t1)
+            k = self._take_rows(self._cache["k"][-1, slot_id], 0, t0, t1)
+            staged = self._staged_rows(slot_id, t0, t1)
+            if staged is not None:
+                # staged tokens (the q-proxy row ln - 1 too) live in the ring
+                lo, r0, n = staged
+                k = k.clone()
+                k[lo - t0:lo - t0 + n] = self._cache["sk"][-1, slot_id, r0:r0 + n]
+            return k
         pl = self._take_rows(self._cache["k_planes"][-1][:, slot_id], 1, t0, t1)
         return unpack_kv(pl, pl.shape[0], pl.shape[0])
 

@@ -61,7 +61,9 @@ class RingBackend(KVBackend):
             raise ValueError(
                 f"decode_staging={mcfg.decode_staging} with backend='ring' "
                 f"is not supported: a sliding-window ring cache already "
-                f"appends in place, so there is no staging window to fold"
+                f"appends in place, so there is no staging window to fold — "
+                f"use backend='paged' with device_kv='dense' for staged "
+                f"decode"
             )
         if cfg.prefill_mode != "bucketed":
             raise ValueError(
@@ -81,6 +83,9 @@ class RingBackend(KVBackend):
         return self.mcfg.attn_window
 
     # ---------------------------------------------------------- device cache
+    def adopt_prefill(self, slot_id, pcache, s) -> None:
+        raise NotImplementedError("ring slots admit via bucketed chunked prefill only")
+
     def bind_slot(self, slot_id: int, rid: int) -> None:
         super().bind_slot(slot_id, rid)
         # a reused slot still holds its previous occupant's ring entries, and

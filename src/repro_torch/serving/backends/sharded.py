@@ -58,7 +58,8 @@ class ShardedBackend(KVBackend):
                 f"decode_staging={mcfg.decode_staging} with "
                 f"backend='sharded' is not supported: the staging ring is "
                 f"not split along the page route, so per-shard byte "
-                f"accounting would be wrong"
+                f"accounting would be wrong — use backend='paged' with "
+                f"device_kv='dense' for staged decode"
             )
         super().check_model(mcfg, cfg)
 

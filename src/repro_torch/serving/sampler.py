@@ -30,18 +30,25 @@ def _generator(seed: int, rid: int, draw: int, device) -> torch.Generator:
     return g
 
 
+def token_probs(logits: torch.Tensor, cfg: SamplerConfig) -> torch.Tensor:
+    """logits (B, V) float32 -> the distribution a temperature draw samples
+    from (temperature > 0): the softmax of logits / temperature with every
+    logit below the k-th largest masked, as the reference's categorical
+    draw over its masked logits."""
+    logits = logits / cfg.temperature
+    if cfg.top_k > 0:
+        kth = torch.topk(logits, cfg.top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, torch.full_like(logits, -1e30), logits)
+    return torch.softmax(logits, dim=-1)
+
+
 def sample(logits: torch.Tensor, cfg: SamplerConfig, seed: int = 0,
            rid: int = 0, draw: int = 0) -> torch.Tensor:
     """logits (B, V) float32 -> tokens (B,) int64 (one stream for every row)."""
     if cfg.temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    logits = logits / cfg.temperature
-    if cfg.top_k > 0:
-        kth = torch.topk(logits, cfg.top_k, dim=-1).values[:, -1:]
-        logits = torch.where(logits < kth, torch.full_like(logits, -1e30), logits)
-    probs = torch.softmax(logits, dim=-1)
     g = _generator(seed, rid, draw, logits.device)
-    return torch.multinomial(probs, 1, generator=g)[:, 0]
+    return torch.multinomial(token_probs(logits, cfg), 1, generator=g)[:, 0]
 
 
 def sample_slots(seeds, rids, draws, logits: torch.Tensor,

@@ -30,7 +30,12 @@ reference's ``serving/scheduler.py``, bucketed prefill).
   tiers) or ``"ring"`` (sliding-window configs: per-slot rings, prefill
   chunks capped at the window).
 
-Not ported: ``prefill_mode="padded"``, which raises where it is asked for.
+* **Padded admission** (``prefill_mode="padded"``, the reference's legacy
+  path, kept as the benchmark baseline).  A prompt is left-padded to a
+  multiple of ``prefill_align`` and prefilled whole at admission; the
+  backend adopts the one-sequence cache into the slot, pad KV inside
+  ``len`` and the store.  ``prefill_compiles`` counts the distinct prefill
+  shapes the reference would compile (the port compiles nothing).
 """
 
 from __future__ import annotations
@@ -89,7 +94,12 @@ class EngineConfig:
     codec: Optional[str] = None
     #: (de)compression-engine geometry + per-step service window
     engine: MemCtlConfig = MemCtlConfig()
-    #: only 'bucketed' is ported
+    #: prompt alignment of prefill_mode="padded" (PAGE_TOKENS keeps the
+    #: reference's semantics)
+    prefill_align: int = PAGE_TOKENS
+    #: 'bucketed' (chunked prefill at the true length) or 'padded' (the
+    #: legacy left-pad-to-``prefill_align`` admission, one whole-prompt
+    #: prefill per request; the benchmark baseline)
     prefill_mode: str = "bucketed"
     #: chunks each mid-prefill slot advances per step while others decode
     prefill_chunks_per_step: int = 1
@@ -177,13 +187,6 @@ def chunk_schedule(prompt_len: int, buckets: List[int]) -> List[tuple]:
     return out
 
 
-def _not_ported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice "
-        f"(ROADMAP queue 1)"
-    )
-
-
 class ContinuousScheduler:
     """Admission queue + slot map + in-flight join/retire serving loop.
 
@@ -198,10 +201,10 @@ class ContinuousScheduler:
                 "prefix_sharing requires prefill_mode='bucketed': padded "
                 "admission runs one monolithic prefill inside _admit, so "
                 "there is no chunk schedule to skip matched pages from")
-        if cfg.prefill_mode != "bucketed":
-            if cfg.prefill_mode == "padded":
-                raise _not_ported("prefill_mode='padded'", "'rest of serving'")
-            raise ValueError(f"prefill_mode must be 'bucketed', got {cfg.prefill_mode!r}")
+        if cfg.prefill_mode not in ("bucketed", "padded"):
+            raise ValueError(
+                f"prefill_mode must be 'bucketed' or 'padded', "
+                f"got {cfg.prefill_mode!r}")
         if cfg.decode_kernel not in ("fused", "rung"):
             raise ValueError(
                 f"decode_kernel must be 'fused' or 'rung', got {cfg.decode_kernel!r}")
@@ -223,6 +226,7 @@ class ContinuousScheduler:
         self.step_count = 0
         self.stats: Dict[str, float] = {
             "prefill_tokens": 0, "decode_tokens": 0, "prefill_chunks": 0,
+            "prefill_compiles": 0,
             "requests_submitted": 0, "requests_completed": 0,
             "requests_truncated": 0,
             "decode_steps": 0, "decode_batch_occupancy": 0.0,
@@ -245,6 +249,7 @@ class ContinuousScheduler:
             self.telemetry.bind_clocks(lambda: self.step_count,
                                        self.backend.engine_time_ns)
         self._keeps = self.backend.device_keeps()
+        self._prefill_shapes: set = set()  # distinct prefill shapes asked for
         self._buckets = prefill_buckets(
             min(cfg.max_ctx, self.backend.max_prefill_bucket()))
         self._waiting: Deque[Request] = deque()
@@ -255,10 +260,13 @@ class ContinuousScheduler:
     def submit(self, req: Request, rng_seed: int | None = None) -> None:
         if rng_seed is not None:
             req.rng_seed = rng_seed
-        if len(req.prompt) < 1 or len(req.prompt) + 1 > self.cfg.max_ctx:
+        admitted = (len(req.prompt) if self.cfg.prefill_mode == "bucketed"
+                    else self._padded_len(len(req.prompt)))
+        if len(req.prompt) < 1 or admitted + 1 > self.cfg.max_ctx:
             raise ValueError(
-                f"request {req.rid}: prompt of {len(req.prompt)} tokens leaves "
-                f"no decode room — exceeds max_ctx {self.cfg.max_ctx}")
+                f"request {req.rid}: prompt of {len(req.prompt)} tokens "
+                f"(admitted as {admitted}) leaves no decode room — exceeds "
+                f"max_ctx {self.cfg.max_ctx}")
         req.arrival_step = self.step_count
         lim = self.cfg.shed_latency_ns_max
         if lim is not None:
@@ -336,6 +344,10 @@ class ContinuousScheduler:
             done.extend(self.step())
         return done
 
+    def _padded_len(self, prompt_len: int) -> int:
+        align = max(1, self.cfg.prefill_align)
+        return -(-prompt_len // align) * align
+
     # -------------------------------------------------------------- admission
     def _admit_tick(self) -> None:
         """Fill free slots from the waiting queue, unless the engine's
@@ -366,6 +378,8 @@ class ContinuousScheduler:
         req.admit_step = self.step_count
         if self.telemetry.enabled:
             self.telemetry.on_admit(req.rid, slot_id)
+        if self.cfg.prefill_mode == "padded":
+            self._prefill_padded(slot_id)
 
     def _prefill_tick(self) -> List[tuple]:
         """Advance every mid-prefill slot: ``prefill_chunks_per_step``
@@ -413,6 +427,8 @@ class ContinuousScheduler:
         self.stats["prefill_s"] += time.time() - t0
         self.stats["prefill_tokens"] += real
         self.stats["prefill_chunks"] += 1
+        self._prefill_shapes.add(("bucket", bucket))
+        self.stats["prefill_compiles"] = len(self._prefill_shapes)
 
         slot.prefill_pos = start + real
         self._lens[slot_id] = slot.prefill_pos
@@ -426,6 +442,36 @@ class ContinuousScheduler:
             slot.pending = self._first_token(slot, logits)
             if self.telemetry.enabled:
                 self.telemetry.on_first_token(slot.req.rid)
+
+    def _prefill_padded(self, slot_id: int) -> None:
+        """Legacy admission: left-pad the prompt to ``prefill_align`` and run
+        one whole-prompt prefill; the backend adopts its cache into the
+        slot's rows.  The pad's KV lands inside ``len`` and the store — the
+        inflated baseline bucketed prefill exists to beat."""
+        slot = self._slots[slot_id]
+        prompt = slot.prompt
+        s = self._padded_len(len(prompt))
+        padded = np.zeros(s, np.int64)
+        padded[s - len(prompt):] = prompt  # left-pad, as the reference
+
+        t0 = time.time()
+        logits, pcache = self.model.prefill(
+            self.params, {"tokens": torch.as_tensor(padded[None], device=self.device)})
+        slot.pending = self._first_token(slot, logits)  # waits for the logits
+        self.stats["prefill_s"] += time.time() - t0
+        self.stats["prefill_tokens"] += s
+        self._prefill_shapes.add(("padded", s))
+        self.stats["prefill_compiles"] = len(self._prefill_shapes)
+
+        # join in flight: copy the prefill KV into this slot's rows
+        self.backend.adopt_prefill(slot_id, pcache, s)
+        self._lens[slot_id] = s
+        slot.prefill_pos = s
+        slot.prefilling = False
+        if self.telemetry.enabled:
+            self.telemetry.on_prefill_chunk(slot.req.rid, 0, s, True)
+            self.telemetry.on_first_token(slot.req.rid)
+        self.backend.on_prefill_progress(slot_id, s, final=True)
 
     def _first_token(self, slot: _Slot, logits) -> int:
         """Draw 0 of the slot's own stream (greedy = argmax)."""
@@ -450,7 +496,12 @@ class ContinuousScheduler:
             # idle or mid-prefill rows decode a dummy token: its k/v lands
             # at the row's own next position, masked for every real query
             # and overwritten by the next prefill chunk or admission
-        self.backend.sync_lens(self._lens)
+        # staged decode caches: a decoding row's staging windows are
+        # anchored at its prefill end (-1 = no anchor: idle and mid-prefill
+        # rows stage nothing)
+        anchor = np.array([slot.prefill_pos if slot is not None and not slot.prefilling
+                           else -1 for slot in self._slots], np.int32)
+        self.backend.sync_lens(self._lens, stage_anchor=anchor)
 
         t0 = time.time()
         logits, cache = self.model.decode(

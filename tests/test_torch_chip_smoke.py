@@ -826,15 +826,24 @@ def test_device_ms_each_splits_one_window_in_launch_order(monkeypatch):
 @pytest.mark.parametrize("run, lost, complete", [
     (6, [], True),
     (6, [0, 1, 2, 1023], True),                          # among the leading pads
-    (6, [1030 + C.TAIL_PAD - 1], True),                  # the last launch, a closing pad
-    (6, [*range(900, 1024), *range(1030, 1030 + C.TAIL_PAD)], True),  # both runs of pads
+    (6, [1030 + 512 - 1], True),                         # the last launch, a closing pad
+    (6, [*range(900, 1024), *range(1030, 1030 + 512)], True),  # both runs of pads
     (6, [1024], False),                                  # the run's first launch
     (6, [5, 1029], False),                               # the run's last launch
     (0, [], False),                                      # nothing between the pads
 ])
 def test_window_fault_allows_losses_only_among_the_pads(run, lost, complete):
-    """A window of 1,024 leading pads, ``run`` launches of its run and
-    TAIL_PAD closing pads is complete when its run launched something and
-    no record of the run's launches was lost."""
-    fault = C.window_fault(1024 + run + C.TAIL_PAD, lost, 1024)
+    """A window of 1,024 leading pads, ``run`` launches of its run and half
+    as many closing pads as leading ones is complete when its run launched
+    something and no record of the run's launches was lost."""
+    fault = C.window_fault(1024 + run + 512, lost, 1024)
+    assert (fault is None) == complete, fault
+    # a window with four times the pads at either end, each lost pad's
+    # record one of the pad four times as far into its run of pads
+    def at(i):
+        if i < 1024:
+            return 4 * i
+        return i + 3072 if i < 1024 + run else 4096 + run + 4 * (i - 1024 - run)
+
+    fault = C.window_fault(4096 + run + 2048, [at(i) for i in lost], 4096)
     assert (fault is None) == complete, fault

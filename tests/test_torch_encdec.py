@@ -213,8 +213,10 @@ def test_text_len_demo_batch_frames_and_loss(models):
     assert tuple(batch["frames"].shape) == (2, tm.cfg.enc_seq, tm.cfg.d_model)
     frames = fake_frames(torch.Generator().manual_seed(1), tm.cfg, 2)
     assert frames.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm.loss(tp, batch)
+    # the loss is ported (held to the reference's value and gradients in
+    # tests/test_torch_training.py): a finite float32 scalar
+    loss = tm.loss(tp, batch)
+    assert loss.dtype == torch.float32 and loss.dim() == 0 and torch.isfinite(loss)
 
 
 def test_scheduler_refuses_the_encdec_family(models):

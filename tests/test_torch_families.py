@@ -11,8 +11,10 @@ a minute and a half serial).
 Held to the reference: the plain forward, each layer of it from the
 reference's input, and the whole-prompt prefill's caches (every element
 within one bf16 step, at most 2% differing: XLA's float32 ``rsqrt`` and
-``exp`` differ from torch's in the last bit; Nemotron's whole forward as
-``FORWARD_DIFF_SHARE_OF`` says), the
+``exp`` differ from torch's in the last bit; Nemotron's whole forward is
+compared with XLA's rsqrt supplied, as ``FORWARD_DIFF_SHARE_OF`` says,
+and every case's within one bf16 step of each token row's largest
+magnitude), the
 prefill's logits and a teacher-forced decode step's (within 5e-2), and on
 a short serving trace the greedy tokens and every integer counter of
 ``report()`` exactly but the compressed-size bytes (``VALUE_BYTES``, held
@@ -63,18 +65,22 @@ CASES = {
 #: the cases whose greedy tokens may part from the reference's at a tie
 PARTS = {"deepseek-moe-16b"}
 FORWARD_DIFF_SHARE = 0.02
-#: Nemotron's plain forward through both layers: every element within one
-#: bf16 step, but 15.6% of them differ.  The cause is located: XLA's CPU
-#: rsqrt is the hardware's approximate reciprocal square root (vrsqrtps)
-#: refined by two Newton steps, off the correctly rounded value by one
-#: float32 ulp on 15% of inputs, and no torch operation reproduces it.  In
-#: the first layer's first norm it moves one element of 10,240 a bf16 step;
-#: that spreads through the layer's products (12.7% after it), as a
-#: one-ulp change of one weight moves 39-55% of the reference's own output
-#: on every family here.  Layer by layer, from the reference's input and
-#: with XLA's rsqrt supplied, every case holds FORWARD_DIFF_SHARE
-#: (``test_each_layer_matches_reference_given_its_rsqrt``)
-FORWARD_DIFF_SHARE_OF = {"nemotron-4-15b": 0.20}
+#: Nemotron's plain forward through both layers is compared with XLA's
+#: float32 rsqrt supplied to the port (``XLA_RSQRT``).  XLA's CPU rsqrt is
+#: the hardware's approximate reciprocal square root (vrsqrtps) refined by
+#: two Newton steps, off the correctly rounded value by one float32 ulp on
+#: 15% of inputs, and no torch operation reproduces it; with torch's own
+#: rsqrt 15.6% of the stack's elements differ (one bf16 step each).  With
+#: XLA's, 5.1% differ: the first layer's attention, from the same input,
+#: rounds 0.17% of its outputs a bf16 step apart (float32 sums in another
+#: order) and the second layer spreads them, as a one-ulp change of one
+#: weight moves 39-55% of the reference's own output on every family here
+#: (``test_xla_rsqrt_parts_from_torch_and_one_ulp_moves_the_reference``).
+#: Every element stays within one bf16 step of its token row's largest
+#: magnitude.  Layer by layer, from the reference's input, every case holds
+#: FORWARD_DIFF_SHARE (``test_each_layer_matches_reference_given_its_rsqrt``)
+FORWARD_DIFF_SHARE_OF = {"nemotron-4-15b": 0.06}
+XLA_RSQRT = {"nemotron-4-15b"}
 LOGITS_ATOL = 5e-2
 RUNGS = [(1, 16), (1, 8), (-1, 4)]
 PROMPT_LENS = [37, 20, 55]
@@ -122,10 +128,26 @@ def _tokens(cfg, b, s, seed):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(np.int32)
 
 
-def test_plain_forward_matches_reference(case):
+def _row_steps(want, got):
+    """The largest difference in bf16 steps of each token row's largest
+    magnitude."""
+    want = np.asarray(want, np.float32)
+    step = 2.0 ** (np.floor(np.log2(np.abs(want).max(-1, keepdims=True))) - 7)
+    return float((np.abs(got - want) / step).max())
+
+
+def _supply_xla_rsqrt(monkeypatch):
+    xla_rsqrt = jax.jit(jax.lax.rsqrt)
+    monkeypatch.setattr(torch, "rsqrt", lambda t: torch.from_numpy(
+        np.asarray(xla_rsqrt(t.float().numpy())).copy()))
+
+
+def test_plain_forward_matches_reference(case, monkeypatch):
     name, jm, jp, tm, tp, _ = case
     toks = _tokens(tm.cfg, 2, 40, 1)
     pos = np.broadcast_to(np.arange(40, dtype=np.int32), (2, 40))
+    if name in XLA_RSQRT:
+        _supply_xla_rsqrt(monkeypatch)
     # compiled without remat, as the reference's prefill runs it: XLA's
     # fusions set the rounding points the port copies (ROADMAP §3), and the
     # training graph's rematerialisation fuses otherwise
@@ -137,6 +159,7 @@ def test_plain_forward_matches_reference(case):
     steps, share = _steps_and_share(xj, xt.float().numpy())
     assert steps <= 1 and share <= FORWARD_DIFF_SHARE_OF.get(name, FORWARD_DIFF_SHARE), \
         (steps, share)
+    assert _row_steps(xj, xt.float().numpy()) <= 1
 
 
 def test_each_layer_matches_reference_given_its_rsqrt(case, monkeypatch):
@@ -148,9 +171,7 @@ def test_each_layer_matches_reference_given_its_rsqrt(case, monkeypatch):
     _, jm, jp, tm, tp, _ = case
     toks = _tokens(tm.cfg, 2, 40, 1)
     pos = np.broadcast_to(np.arange(40, dtype=np.int32), (2, 40))
-    xla_rsqrt = jax.jit(jax.lax.rsqrt)
-    monkeypatch.setattr(torch, "rsqrt", lambda t: torch.from_numpy(
-        np.asarray(xla_rsqrt(t.float().numpy())).copy()))
+    _supply_xla_rsqrt(monkeypatch)
     one_layer = jax.jit(lambda p, x, q: JT.run_stack(p, jm.cfg, x, q, remat=False)[0])
     x = JT.embed_apply(jp["embed"], jnp.asarray(toks))
     for i in range(tm.cfg.n_layers):

@@ -104,7 +104,7 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(smoke):
     (dict(backend="sharded", shards=7), ValueError, "divides neither"),
     (dict(prefix_sharing=True, prefill_mode="padded"), ValueError, "prefix_sharing"),
     (dict(weight_stream="streamed"), ValueError, "weight_stream"),
-    (dict(prefill_mode="padded"), NotImplementedError, "padded"),
+    (dict(prefill_mode="eager"), ValueError, "'bucketed' or 'padded'"),
     (dict(decode_kernel="warp"), ValueError, "decode_kernel"),
     (dict(device_kv="planes"), ValueError, "device_kv"),
     (dict(max_ctx=72), ValueError, "multiple of PAGE_TOKENS"),
@@ -116,15 +116,16 @@ def test_unported_options_raise(smoke, change, error, match):
         ContinuousScheduler(model, params, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(attn_window=32), "ring"),
-    (dict(decode_staging=8), "staged decode"),
+@pytest.mark.parametrize("change,engine,error,match", [
+    (dict(attn_window=32), {}, NotImplementedError, "ring"),
+    (dict(decode_staging=8), dict(device_kv="bitplane"), ValueError, "device_kv='dense'"),
 ])
-def test_unported_model_configs_raise(smoke, change, match):
+def test_unported_model_configs_raise(smoke, change, engine, error, match):
     model, params = smoke
     other = build_model(dataclasses.replace(model.cfg, **change))
-    with pytest.raises(NotImplementedError, match=match):
-        ContinuousScheduler(other, params, EngineConfig(max_ctx=64), device="cpu")
+    cfg = dataclasses.replace(EngineConfig(max_ctx=64), **engine)
+    with pytest.raises(error, match=match):
+        ContinuousScheduler(other, params, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("arch", REFERENCE_ARCHS)
