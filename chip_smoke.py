@@ -200,14 +200,15 @@ Phases (any failure exits non-zero; no phase's error is caught):
    magnitude) and the forward's lse against the plain one, at
    SmolLM-135M's training shape (B 8, L 2,048, 9/3 heads of 64, causal), a
    64-key window, Whisper-tiny's encoder (1,500 frames of a 1,536-row key
-   buffer) and its cross attention (224 over 1,500).  9b: full-width
+   buffer), its cross attention (224 over 1,500) and Nemotron-4-15B's
+   attention heads (B 2, L 2,048, 48/8 heads of 128, causal).  9b: full-width
    SmolLM-135M through ``make_train_step`` (2 micro-batches of a
    ShardedLoader batch of 8 x 2,048): one step's loss and gradients,
    launch counts reset before and read after (flash forward and backward
    once a layer a micro-batch), against the same step through the plain
    versions (loss, global gradient norm, every leaf's cosine); a profiler
-   window over one step; 10 AdamW steps on the batch, the loss falling;
-   host and device ms a step and tokens/s.  9d: ``TrainSupervisor`` and a
+   window over one step (its device time split by kernel); 10 AdamW steps
+   on the batch, the loss falling; host and device ms a step and tokens/s.  9d: ``TrainSupervisor`` and a
    ``CheckpointManager`` on a temporary directory under ``build/`` over 9b's
    model, its top layer trained: an injected ``SimulatedFailure``, one
    recovery from the last checkpoint, the batches replayed exactly once,
@@ -261,10 +262,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    LLaVA's prefill, Whisper's encoder and cross attention), each beside
    its plain version, its bound and SDPA over the same valid keys; the
    paged rows, at 8a's and 8b's decode (B 4, 2,048 slots).  Then the flash
-   backward's row (ten rows in all), at SmolLM-135M's training shape,
-   beside its plain version, its bound (five products over the visible
-   pairs) and SDPA's forward and backward; every row counts its launches
-   in phases 3t and 9 too.
+   backward's row (ten rows in all), at SmolLM-135M's training shape and,
+   under ``shapes``, at Nemotron-4's heads, beside its plain version, its
+   bound (five products over the visible pairs) and SDPA's backward alone
+   (its library time) and forward and backward; every row counts its
+   launches in phases 3t and 9 too.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -646,17 +648,23 @@ def device_ms(fn, match: str = "", iters: int = 50, per_call: int = 1) -> float:
     out the gaps in which the host was still issuing the next launch.
     With a ``match`` (``per_call`` kernels a call) the window must hold
     ``iters * per_call`` launches of it."""
+    return sum(device_ms_by_kernel(fn, match, iters, per_call).values())
+
+
+def device_ms_by_kernel(fn, match: str = "", iters: int = 50, per_call: int = 1) -> dict:
+    """``device_ms`` split by kernel: each matching kernel's name (the
+    profiler's key) to its device ms per call of ``fn(i)``."""
     fn(0)
 
     def run():
         for i in range(iters):
             fn(i)
 
-    rows = [e for e in device_rows(run, match or "a plain call",
-                                   {match: iters * per_call} if match else None,
-                                   repeatable=True)
-            if match in e.key]
-    return sum(e.self_device_time_total for e in rows) / iters / 1e3
+    return {e.key: e.self_device_time_total / iters / 1e3
+            for e in device_rows(run, match or "a plain call",
+                                 {match: iters * per_call} if match else None,
+                                 repeatable=True)
+            if match in e.key}
 
 
 def device_ms_each(calls: list, match: str, iters: int, what: str) -> list:
@@ -4965,16 +4973,22 @@ STAGED_ROW_STEPS = 8
 # Phase 9: training at full width.  9a: the flash backward against its
 # plain version at (name, B, Sq, Skv, Hp, Hkv, hd, causal, window,
 # kv_valid): SmolLM-135M's training shape, a 64-key window, Whisper-tiny's
-# encoder (1,500 frames of a 1,536-row key buffer) and its cross attention
+# encoder (1,500 frames of a 1,536-row key buffer) and its cross
+# attention, and Nemotron-4-15B's attention heads (48 q / 8 kv of 128: rep
+# 6, the register-heavy head dim every hd-128 family trains through)
 FLASH_BWD_CASES = (
     ("smollm-135m train", 8, 2048, 2048, 9, 3, 64, True, 0, None),
     ("window 64", 8, 2048, 2048, 9, 3, 64, True, 64, None),
     ("whisper-tiny encoder", 8, 1500, 1536, 6, 6, 64, False, 0, 1500),
     ("whisper-tiny cross", 8, 224, 1536, 6, 6, 64, False, 0, 1500),
+    ("nemotron-4-15b heads", 2, 2048, 2048, 48, 8, 128, True, 0, None),
 )
+# the cases phase 6 times beside the row's own (the first): the hd-128 one
+FLASH_BWD_TIMED = ("nemotron-4-15b heads",)
 # dq, dk and dv each within this many bf16 steps of its largest magnitude
-# (the float32 sums run in another order and exp is CUDA's expf, which can
-# flip one rounding of p or ds) and 1% in relative Frobenius norm
+# (the float32 sums run in another order, dq's in one that changes from run
+# to run, and exp is ex2.approx, which can flip one rounding of p or ds)
+# and 1% in relative Frobenius norm
 FLASH_BWD_STEPS, FLASH_BWD_FROBENIUS = 2, 1e-2
 # 9b: SmolLM-135M, all 30 layers, make_train_step with TRAIN_MICRO
 # micro-batches of ShardedLoader batches of TRAIN_B x TRAIN_L; one step's
@@ -5313,73 +5327,151 @@ def check_flash_bwd(torch, dev, cases=FLASH_BWD_CASES, phase: str = "phase 9a") 
     return out
 
 
-def time_flash_bwd(torch, dev, checks: dict, train: dict) -> dict:
-    """The backward kernel's row at SmolLM-135M's training shape: CUDA
-    events and profiler device time (its three kernels a call), the plain
-    backward's, the bound (five products of 2 hd operations over the
-    visible pairs at the bf16 tensor-core peak, against q, k, v, out, dout
-    and lse read once and dq, dk, dv written once), SDPA's forward and
-    backward (``enable_gqa``, causal; a yardstick the port never calls)
-    and the kernels' own forward (with lse) and backward beside it."""
+def sdpa_case(torch, q, k, v, dout, pos, kv, case) -> tuple:
+    """PyTorch's SDPA at a FLASH_BWD_CASES case, the same function the
+    kernels compute: (forward, (q, k, v) in SDPA's layout needing grad,
+    dout in its layout).  A causal case with Sq = Skv, no window and every
+    key valid takes ``is_causal``; the others a boolean mask of the same
+    visible pairs.  A yardstick the port never calls."""
     import torch.nn.functional as F
 
+    _, b, sq, skv, hp, hkv, hd, causal, window, valid = case
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dt = dout.transpose(1, 2).contiguous()
+    plain_causal = causal and window == 0 and sq == skv and valid in (None, skv)
+    mask = None
+    if not plain_causal:
+        keys = torch.arange(skv, device=q.device)
+        qp = pos.long()[:, None, :, None]
+        mask = keys < kv.long()[:, None, None, None]
+        if causal:
+            mask = mask & (keys <= qp)
+        if window > 0:
+            mask = mask & (keys > qp - window)
+
+    def forward():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              is_causal=plain_causal, enable_gqa=hp != hkv)
+
+    return forward, (qt, kt, vt), dt
+
+
+def sdpa_backward_ms(torch, q, k, v, dout, pos, kv, case, iters: int) -> tuple:
+    """(CUDA-event ms, device ms) of SDPA's backward alone at a
+    FLASH_BWD_CASES case (``sdpa_case``): its forward run once with the
+    graph kept, then ``torch.autograd.grad`` over it timed."""
+    forward, leaves, dt = sdpa_case(torch, q, k, v, dout, pos, kv, case)
+    y = forward()
+
+    def grad(i):
+        return torch.autograd.grad(y, leaves, dt, retain_graph=True)
+
+    return cuda_time_ms(grad, iters=iters), device_ms(grad, "", iters)
+
+
+def time_flash_bwd_case(torch, dev, case: tuple, plain: bool) -> dict:
+    """The backward kernel at one FLASH_BWD_CASES case: CUDA events and
+    profiler device time (its three kernels a call, in all and each apart),
+    the bound (five products of 2 hd operations over the visible pairs at
+    the bf16 tensor-core peak, against q, k, v, out, dout and lse read once
+    and dq, dk, dv written once), SDPA's backward alone and its forward and
+    backward, the kernels' own forward (with lse) and backward, and, when
+    ``plain``, the plain backward's times."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ref as FR
 
-    case = FLASH_BWD_CASES[0]
-    _, b, sq, skv, hp, hkv, hd, causal, window, _ = case
+    name, b, sq, skv, hp, hkv, hd, causal, window, _ = case
     q, k, v, dout, pos, kv = flash_bwd_case(torch, dev, case)
     with uncounted():
-        o, lse = FK.flash_attention(q, k, v, pos, kv, causal=True, window=0, lse=True)
+        o, lse = FK.flash_attention(q, k, v, pos, kv, causal=causal, window=window, lse=True)
         run = lambda i: FK.flash_attention_bwd(q, k, v, o, dout, lse, pos, kv,  # noqa: E731
-                                               causal=True, window=0)
-        plain = lambda i: FR.flash_attention_bwd_ref(q, k, v, o, dout, lse, q_pos=pos,  # noqa: E731
-                                                     kv_valid=kv)
+                                               causal=causal, window=window)
 
         def both(i):
-            o2, l2 = FK.flash_attention(q, k, v, pos, kv, causal=True, window=0, lse=True)
-            return FK.flash_attention_bwd(q, k, v, o2, dout, l2, pos, kv, causal=True, window=0)
+            o2, l2 = FK.flash_attention(q, k, v, pos, kv, causal=causal, window=window,
+                                        lse=True)
+            return FK.flash_attention_bwd(q, k, v, o2, dout, l2, pos, kv, causal=causal,
+                                          window=window)
 
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-        dt = dout.transpose(1, 2).contiguous()
+        forward, leaves, dt = sdpa_case(torch, q, k, v, dout, pos, kv, case)
 
-        def lib(i):
-            y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-            return torch.autograd.grad(y, (qt, kt, vt), dt)
+        def lib_both(i):
+            return torch.autograd.grad(forward(), leaves, dt)
 
         per_call = kernels_per_call(run, "flash_attention_bwd")
         k_ms = cuda_time_ms(run, iters=10)
-        k_dev = device_ms(run, "flash_attention_bwd", 10, per_call)
-        p_ms, p_dev = cuda_time_ms(plain, iters=2, warmup=1), device_ms(plain, "", 2)
+        split = {re.search(r"flash_attention_bwd\w*", n).group(0): t for n, t in
+                 device_ms_by_kernel(run, "flash_attention_bwd", 10, per_call).items()}
+        k_dev = sum(split.values())
+        out = {}
+        if plain:
+            fn = lambda i: FR.flash_attention_bwd_ref(  # noqa: E731
+                q, k, v, o, dout, lse, q_pos=pos, kv_valid=kv, causal=causal, window=window)
+            out["plain_ms"] = cuda_time_ms(fn, iters=2, warmup=1)
+            out["plain_device_ms"] = device_ms(fn, "", 2)
         both_ms = cuda_time_ms(both, iters=10)
-        lib_ms, lib_dev = cuda_time_ms(lib, iters=10), device_ms(lib, "", 10)
-    fwd_flops = flash_work(pos, kv, hp, hd, causal=True, window=0)
+        lib_ms, lib_dev = sdpa_backward_ms(torch, q, k, v, dout, pos, kv, case, 10)
+        lib_both_ms, lib_both_dev = cuda_time_ms(lib_both, iters=10), device_ms(lib_both, "", 10)
+    fwd_flops = flash_work(pos, kv, hp, hd, causal=causal, window=window)
     flops = fwd_flops // 2 * 5  # five products of 2 hd operations a visible pair
     nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
     b_ms, b_by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
-    lib_bound, _ = bound_ms(2 * (5 * q.numel() + 4 * k.numel()), flops + fwd_flops,
-                            BF16_TENSOR_FLOPS)
-    log(f"phase 6: flash_attention_bwd {k_ms:.4f} / {k_dev:.4f} ms (events / device, "
-        f"{per_call} kernels a call) at B={b} L={sq} {hp}/{hkv} heads of {hd} causal: bound "
+    log(f"phase 6: flash_attention_bwd [{name}] {k_ms:.4f} / {k_dev:.4f} ms (events / "
+        f"device, {per_call} kernels a call) at B={b} L={sq} {hp}/{hkv} heads of {hd}: bound "
         f"{b_ms:.4f} ms by {b_by} ({flops} bf16 operations, {nbytes} B), {b_ms / k_dev:.3f} of "
-        f"the bound; plain {p_ms:.4f} / {p_dev:.4f} ms; the kernels' forward (lse) and backward "
-        f"{both_ms:.4f} ms; SDPA forward and backward {lib_ms:.4f} / {lib_dev:.4f} ms "
-        f"(their bound {lib_bound:.4f}); kernels against SDPA {both_ms / lib_ms:.2f}x")
+        f"the bound; by kernel { {n: round(t, 4) for n, t in split.items()} }; "
+        + (f"plain {out['plain_ms']:.4f} / {out['plain_device_ms']:.4f} ms; " if plain else "")
+        + f"SDPA backward alone {lib_ms:.4f} / {lib_dev:.4f} ms (kernel / SDPA by device "
+        f"{k_dev / lib_dev:.3f}); the kernels' forward (lse) and backward {both_ms:.4f} ms; "
+        f"SDPA forward and backward {lib_both_ms:.4f} / {lib_both_dev:.4f} ms")
+    return {"case": name, "ms": k_ms, "device_ms": k_dev, "device_ms_by_kernel": split,
+            "kernels_per_call": per_call,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_flops": flops, "bound_bytes": nbytes,
+            "library_ms": lib_ms, "library_device_ms": lib_dev,
+            "forward_and_backward_ms": both_ms,
+            "library_forward_and_backward_ms": lib_both_ms,
+            "library_forward_and_backward_device_ms": lib_both_dev, **out}
+
+
+def time_flash_bwd(torch, dev, checks: dict, train: dict) -> dict:
+    """The backward kernel's row at SmolLM-135M's training shape
+    (``time_flash_bwd_case`` with the plain backward's times), its library
+    time SDPA's backward alone; the FLASH_BWD_TIMED cases under
+    ``shapes``."""
+    by_name = {c[0]: c for c in FLASH_BWD_CASES}
+    case = FLASH_BWD_CASES[0]
+    row = time_flash_bwd_case(torch, dev, case, plain=True)
+    shapes = [time_flash_bwd_case(torch, dev, by_name[n], plain=False) for n in FLASH_BWD_TIMED]
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/models/attention.py:148",
+            "replaces": "src/repro/models/attention.py:147",
             "replaces_note": "the reference's custom VJP _flash_bwd; no Pallas kernel",
             "launches": train["launches"]["flash_attention_bwd"],
             "launches_per_train_step": train["launches"]["flash_attention_bwd"],
-            "kernels_per_call": per_call,
             "max_abs_err": checks[case[0]]["max_abs_err"],
             "bf16_steps": max(c["steps"] for c in checks.values()),
-            "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms, "plain_device_ms": p_dev,
-            "bound_ms": b_ms, "bound_by": b_by, "bound_flops": flops, "bound_bytes": nbytes,
-            "forward_and_backward_ms": both_ms,
-            "library_ms": lib_ms, "library_device_ms": lib_dev,
-            "library": "torch.nn.functional.scaled_dot_product_attention forward and backward",
-            "cases": checks}
+            **{key: val for key, val in row.items() if key != "case"},
+            "library": "torch.nn.functional.scaled_dot_product_attention backward alone "
+                       "(autograd.grad over a kept forward graph)",
+            "shapes": shapes, "cases": checks}
+
+
+# 9b's step device time by kernel: (group, name fragments, lowercased), the
+# first group whose fragment a kernel's name holds; the rest is "other"
+TRAIN_SPLIT = (("flash backward", ("flash_attention_bwd",)),
+               ("flash forward", ("flash_attention",)),
+               ("matrix products", ("gemm", "xmma", "nvjet", "cutlass")))
+
+
+def device_split(rows, groups) -> dict:
+    """Device ms of a profiler window's rows (``device_rows``) by kernel
+    name group, rounded to the microsecond."""
+    out = dict.fromkeys([name for name, _ in groups] + ["other"], 0.0)
+    for e in rows:
+        key = e.key.lower()
+        name = next((n for n, frags in groups if any(f in key for f in frags)), "other")
+        out[name] += e.self_device_time_total / 1e3
+    return {k: round(v, 3) for k, v in out.items()}
 
 
 def _to(batch: dict, dev) -> dict:
@@ -5461,11 +5553,12 @@ def run_training_phase(torch, dev, corpus, smoke: bool = False, b: int = TRAIN_B
     step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps),
                            n_micro)
     state = adamw_init(params)
-    device_ms = None
+    device_ms = split = None
     if on_card:
         rows = device_rows(lambda: step(params, state, batch), f"{phase} one training step",
                            repeatable=True)
         device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        split = device_split(rows, TRAIN_SPLIT)
     losses, times = [], []
     p = params
     for _ in range(steps):
@@ -5478,11 +5571,11 @@ def run_training_phase(torch, dev, corpus, smoke: bool = False, b: int = TRAIN_B
     log(f"{phase}: {steps} AdamW steps on one batch (lr {TRAIN_LR}, warmup 1): losses "
         f"{[round(x, 4) for x in losses]}; host {host_ms:.1f} ms a step, device "
         f"{'not measured' if device_ms is None else f'{device_ms:.1f} ms'} a step (one profiler "
-        f"window), {b * l / host_ms * 1e3:.0f} tokens/s")
+        f"window; by kernel {split}), {b * l / host_ms * 1e3:.0f} tokens/s")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: the loss did not fall: {losses}")
     return {"launches": launches, "loss": float(loss), "plain_loss": float(p_loss), **cmp,
-            "losses": losses, "host_ms": host_ms, "device_ms": device_ms,
+            "losses": losses, "host_ms": host_ms, "device_ms": device_ms, "device_split": split,
             "tokens_per_s": b * l / host_ms * 1e3, "model": model, "params": params}
 
 

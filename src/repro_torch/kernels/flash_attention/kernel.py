@@ -4,10 +4,12 @@ launch wrappers.
 
 The CUDA C++ sources are ``src/repro_torch/csrc/flash_attention.cu`` (the
 forward, which also writes each row's log-sum-exp when asked) and
-``src/repro_torch/csrc/flash_attention_bwd.cu`` (the backward: a delta
-pass, dK/dV, then dQ, one C call counted as one launch), built at first
-use by :mod:`repro_torch.kernels._build`.  Nothing is built when
-this module is imported.  The wrapper checks its inputs, allocates its
+``src/repro_torch/csrc/flash_attention_bwd.cu`` (the backward: a pre-pass,
+the main kernel that forms dK, dV and dQ's float32 sums, then dQ's
+rounding, one C call counted as one launch; the source owns its row tiles
+and its workspace's layout), built at first use by
+:mod:`repro_torch.kernels._build`.  Nothing is built when this module is
+imported.  The wrapper checks its inputs, allocates its
 output (and, when the keys are split, the partials' workspace) with
 ``torch.empty``, launches on the current stream, raises if the launch did
 not happen, and adds one to its count in :data:`LAUNCHES`.  The launch
@@ -71,6 +73,8 @@ def _library_bwd() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_bwd_launch.argtypes = [p] * 12 + [i] * 8 + [p]
     lib.flash_attention_bwd_launch.restype = i
+    lib.flash_attention_bwd_workspace.argtypes = [i] * 5
+    lib.flash_attention_bwd_workspace.restype = ctypes.c_size_t
     return lib
 
 
@@ -185,8 +189,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hp, Sq) float32 from the forward; q_pos (B, Sq) and kv_valid (B,)
     int32; all contiguous, 16-byte aligned, on one CUDA device.  Returns
     (dq, dk, dv) bf16 in q's, k's and v's shapes, dk and dv summed over
-    each kv head's query heads in the kernel.  Allocates the (B, Hp, Sq)
-    float32 delta workspace; one C call launches the three kernels and
+    each kv head's query heads in the kernel.  Allocates the float32
+    workspace whose size the library gives (dq's sums, the row tiles'
+    records); one C call, on q's device, launches the three kernels and
     counts one launch."""
     dev = q.device
     if dev.type != "cuda":
@@ -217,12 +222,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((bsz, hp, sq), dtype=torch.float32, device=dev)
-    err = _library_bwd().flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), q_pos.data_ptr(), kv_valid.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bsz, sq, skv, hp, hkv, hd,
-        int(bool(causal)), int(window), torch.cuda.current_stream(dev).cuda_stream)
+    lib = _library_bwd()
+    floats = lib.flash_attention_bwd_workspace(bsz, sq, hp, hkv, hd)
+    if floats == 0:
+        raise ValueError(f"the backward kernel takes no {hp // hkv} q heads a kv head "
+                         f"(B={bsz}, Sq={sq}, {hp}/{hkv} heads of {hd})")
+    ws = torch.empty(floats, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), q_pos.data_ptr(), kv_valid.data_ptr(), ws.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bsz, sq, skv, hp, hkv, hd,
+            int(bool(causal)), int(window), torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

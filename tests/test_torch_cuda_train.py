@@ -7,8 +7,10 @@ The file imports no JAX, so it runs on the GPU host:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_train.py
 
 Tolerances: the backward rounds p and ds to bf16 at the same points as the
-plain version, but its float32 sums run in another order and its exp is
-CUDA's ``expf``, which can flip one rounding of p or ds; dq, dk and dv are
+plain version, but its float32 sums run in another order (dq's across key
+blocks in an order that changes from run to run) and its exp is
+``ex2.approx`` with log2(e) folded into the scale, which can flip one
+rounding of p or ds; dq, dk and dv are
 each held to two bf16 steps at their own largest magnitude and 1% in
 relative Frobenius norm.  The forward's lse is float32 on both sides (the
 kernel's exp2 with log2(e) folded in): within 1e-3.
@@ -31,9 +33,13 @@ SHAPES = [
     (1, 300, 300, 9, 3, 64, True, 64, None, 0),     # a 64-key window, ragged tiles
     (2, 200, 256, 6, 6, 64, False, 0, (230, 256), 0),  # Whisper-like encoder: kv_valid < Skv
     (2, 64, 200, 6, 6, 64, False, 0, (200, 180), 0),   # cross attention, Sq != Skv
-    (1, 130, 130, 4, 4, 128, True, 0, None, 0),     # hd 128 (32-row steps)
+    (1, 130, 130, 4, 4, 128, True, 0, None, 0),     # hd 128
     (2, 96, 160, 8, 1, 16, True, 0, (160, 150), 64),  # rep 8, queries at an offset
     (1, 72, 72, 7, 7, 112, True, 0, None, 0),       # hd 112
+    (2, 512, 512, 48, 8, 128, True, 0, None, 0),    # Nemotron-4-15B's heads: rep 6, hd 128
+    # queries at an offset into their keys: each row sees five 128-key
+    # blocks, whose dq parts the float32 workspace sums
+    (1, 192, 640, 6, 2, 64, True, 0, None, 448),
 ]
 
 
@@ -136,3 +142,18 @@ def test_cuda_autograd_runs_both_kernels_once():
     ref.backward(dout.cpu())
     for name, g, w in zip(("dq", "dk", "dv"), leaves, cpu):
         _close(name, g.grad.cpu(), w.grad)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_refuses_a_row_tile_it_cannot_hold():
+    """More than 64 q heads a kv head fill no 64-slot row tile: the library
+    sizes no workspace for them, and the wrapper raises before a launch."""
+    dev = _cuda()
+    shape = (1, 8, 8, 65, 1, 16, True, 0, None, 0)
+    q, k, v, dout, q_pos, kv = _inputs(dev, shape)
+    out, lse = FR.flash_attention_ref(q, k, v, q_pos=q_pos, kv_valid=kv, return_lse=True)
+    FK.reset_launches()
+    with pytest.raises(ValueError, match="q heads a kv head"):
+        FK.flash_attention_bwd(q, k, v, out.contiguous(), dout, lse, q_pos, kv, causal=True,
+                               window=0)
+    assert FK.LAUNCHES["flash_attention_bwd"] == 0

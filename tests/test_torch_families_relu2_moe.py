@@ -3,8 +3,9 @@ squared-ReLU MLP) and DeepSeek-MoE-16B (fine-grained experts beside two
 shared ones), each at its SMOKE width on bit-plane device KV: the same
 tests, collected here with this module's ``case`` fixture (that file's
 docstring gives the bounds; DeepSeek may part from the reference only at
-an exact bf16 logit tie, and Nemotron's plain forward is held as
-``FORWARD_DIFF_SHARE_OF`` says, each of its layers to the common bound)."""
+an exact bf16 logit tie, and Nemotron's plain forward is compared with
+XLA's rsqrt and q/k/v projections supplied, ``XLA_PROJECTIONS``; every
+case is held to the common bound)."""
 
 import pytest
 

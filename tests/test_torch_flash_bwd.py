@@ -4,9 +4,13 @@ VJP (``repro.models.attention._flash_bwd`` through ``jax.vjp`` of its
 ``flash_attention``), on the CPU.
 
 The same bf16 inputs and output cotangent, made with numpy from a seed, go
-through both.  Cases: causal, a window, bidirectional; rep 1, 3 and 6;
+through both.  Cases: causal, a window, bidirectional; rep 1, 3, 6 and 8;
 per-row kv_valid; Sq != Skv with queries at an offset; a ragged key length
-that pads the reference's last 512-key chunk.
+that pads the reference's last 512-key chunk; head dims 16 to 128, 112
+included.  The last four are the shape classes the card's tests
+(``tests/test_torch_cuda_train.py``) give the backward kernel: Nemotron-4's
+rep 6 at hd 128, hd 112, rep 8 at an offset, and rows at an offset that see
+several of the kernel's 128-key blocks.
 
 Tolerance: dq, dk and dv each within two bf16 steps at its own largest
 magnitude, and within 1% in relative Frobenius norm.  Both sides round at
@@ -52,6 +56,10 @@ CASES = [
     ("bidirectional-rep6", 2, 64, 80, 6, 1, 16, False, 0, (80, 61), 0),
     ("offset-rows-rep3", 2, 32, 96, 6, 2, 32, True, 0, (96, 90), 64),
     ("ragged-chunk-rep1", 1, 40, 600, 2, 2, 16, False, 0, (600,), 0),
+    ("causal-rep6-hd128", 1, 40, 40, 12, 2, 128, True, 0, None, 0),
+    ("causal-rep1-hd112", 1, 36, 36, 3, 3, 112, True, 0, None, 0),
+    ("offset-rows-rep8", 2, 24, 64, 8, 1, 16, True, 0, (64, 50), 40),
+    ("offset-blocks-rep3", 1, 24, 300, 6, 2, 64, True, 0, None, 276),
 ]
 
 
@@ -183,3 +191,4 @@ def test_backward_through_key_positions_raises():
     out = FO.flash_attention(q, k, k, q_pos=pos, kv_valid=16, kv_pos=kv_pos)
     with pytest.raises(ValueError, match="key positions"):
         out.sum().backward()
+
