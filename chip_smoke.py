@@ -215,11 +215,24 @@ Phases (any failure exits non-zero; no phase's error is caught):
    every restored tree the saved one bit for bit, the saves and loads
    timed with the card's codec.  9c: Whisper-tiny through
    ``make_train_step``, 3 steps on B 8 x (1,500 frames + 224 tokens), the
-   loss falling.
+   loss falling.  9e: the SSD backward kernel against its plain version
+   (``ref.ssd_bwd_ref``) on the forward kernel's workspaces, at the
+   Mamba2-1.3B and Zamba2-7B training micro-batches (1 x 4,096 tokens, b
+   and c bf16-valued; Zamba2's with h0 and dh_final nonzero): every
+   gradient's relative Frobenius error within its bound, the kernel's
+   device ms against its bound.  9f: full-width Mamba2-1.3B (48 layers)
+   and Zamba2-7B (width in full, depth cut to 25 of its 81 slots, which
+   the log reckons) through ``make_train_step`` (2 micro-batches of a
+   ShardedLoader batch of 2 x 4,096): one step's loss and gradients,
+   launch counts reset before and read after (the SSD forward twice a
+   Mamba2 layer a micro-batch under layer remat, its backward once; flash
+   forward and backward once a shared-block call), against the same step
+   through the plain versions (9b's bounds); a profiler window over one
+   step; 3 AdamW steps at lr 1e-4, the loss falling.
 6. Kernel times (CUDA events and profiler device time) beside their
    bound, the plain version's time and one PyTorch call's where one
    computes the same function (device time too for the paged rows and the
-   matmul), printed as one ``{"kernels": [...]}`` line (ten rows: every
+   matmul), printed as one ``{"kernels": [...]}`` line (eleven rows: every
    kernel of the port; the matmul row carries its Zamba2-7B MLP rows, cold,
    under ``shapes``; the pack row the decode append (K+V of B 8 into a
    1,024-row cache) beside the parent's route (a flat pack a stream and an
@@ -262,11 +275,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
    LLaVA's prefill, Whisper's encoder and cross attention), each beside
    its plain version, its bound and SDPA over the same valid keys; the
    paged rows, at 8a's and 8b's decode (B 4, 2,048 slots).  Then the flash
-   backward's row (ten rows in all), at SmolLM-135M's training shape and,
-   under ``shapes``, at Nemotron-4's heads, beside its plain version, its
-   bound (five products over the visible pairs) and SDPA's backward alone
-   (its library time) and forward and backward; every row counts its
-   launches in phases 3t and 9 too.
+   backward's row, at SmolLM-135M's training shape and, under ``shapes``,
+   at Nemotron-4's heads, beside its plain version, its bound (five
+   products over the visible pairs) and SDPA's backward alone (its
+   library time) and forward and backward; last the SSD backward's row:
+   9e's Mamba2-1.3B case, Zamba2-7B's under ``shapes``, beside the plain
+   backward and its bound (the scores at one TF32 pass on bf16-valued b
+   and c, every other product at three), its launches those of 9f's
+   Mamba2 step.  Every row counts its launches in phases 3t and 9 too.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -282,6 +298,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -303,7 +320,7 @@ SSD_PASSES_F32 = (3, 3, 3, 3)
 SSD_PASSES_BF16_BC = (1, 3, 2, 3)
 
 SOURCES = ("paged_attention.cu", "bitplane.cu", "bitplane_matmul.cu", "ssd.cu",
-           "flash_attention.cu", "exp_delta.cu", "flash_attention_bwd.cu")
+           "flash_attention.cu", "exp_delta.cu", "flash_attention_bwd.cu", "ssd_bwd.cu")
 
 B, S, HKV, REP, HD, BITS = 8, 1024, 3, 3, 64, 16
 # integer report counters that came with shared-prefix pages, and the
@@ -516,6 +533,7 @@ def build_kernels() -> None:
     for mod in (K, BK, MK, SK, FK, EK):
         mod._library()
     FK._library_bwd()
+    SK._library_bwd()
     log(f"phase 1: {len(SOURCES)} libraries built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -540,6 +558,12 @@ def build_kernels() -> None:
 # steps, which cannot be measured again, lost 523 at its end), and a lost
 # record is allowed among either run of pads.  A timing loop's window,
 # the common one, thus closes with 512 pads, a stateful one with 2,048.
+# A window traces device activity alone (kernels, copies and the runtime
+# calls that launched them, which the matching reads), not the host's
+# operators, and sums its device rows itself: over a Mamba2-1.3B training
+# step that cut the window's host time about threefold, with the same
+# launches matched and the same device time (``ssm_train_study.py``,
+# PERF.md §6).
 PROFILER_PAD = 4096
 REPEATABLE_PAD = 1024
 INCOMPLETE_WINDOWS: list = []
@@ -549,8 +573,8 @@ WINDOW_SECONDS: list = []
 
 
 def profile_window(run, what: str, pad: int = PROFILER_PAD) -> tuple:
-    """A torch.profiler window, host and device activity traced, around
-    ``run()`` and a synchronise, opened with ``pad`` pad kernels and closed
+    """A torch.profiler window, device activity traced, around ``run()``
+    and a synchronise, opened with ``pad`` pad kernels and closed
     with ``pad // 2``.  Each kernel launch the host traced is matched to its
     device record by correlation id; a lost record is allowed only among
     the pads (``window_fault``).  Returns the profiler, its events and the
@@ -561,7 +585,7 @@ def profile_window(run, what: str, pad: int = PROFILER_PAD) -> tuple:
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(pad):
             torch.cuda._sleep(1)
         run()
@@ -600,8 +624,10 @@ def incomplete(what: str, fault: str) -> None:
 
 
 def device_rows(run, what: str, expect: dict | None = None, repeatable: bool = False) -> list:
-    """The device rows (``key_averages``) of a ``profile_window`` around
-    ``run()``, the pad kernels left out.  ``expect`` maps a kernel-name
+    """The device rows of a ``profile_window`` around ``run()``, the pad
+    kernels left out: a row a kernel or copy name (``key``), its records
+    (``count``) and their summed microseconds (``self_device_time_total``,
+    as ``key_averages`` names them).  ``expect`` maps a kernel-name
     fragment to the launches the window must hold.  A ``repeatable`` run
     (one with no state of its own: a timing loop, a prefill, decode steps
     on a copy of the cache) opens with REPEATABLE_PAD
@@ -613,9 +639,15 @@ def device_rows(run, what: str, expect: dict | None = None, repeatable: bool = F
 
     for attempt in range(2 if repeatable else 1):
         pad = REPEATABLE_PAD if repeatable and attempt == 0 else PROFILER_PAD
-        prof, _, fault = profile_window(run, what, pad)
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key]
+        _, events, fault = profile_window(run, what, pad)
+        by_key: dict = {}
+        for e in events:
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
+                row = by_key.setdefault(e.name, types.SimpleNamespace(
+                    key=e.name, count=0, self_device_time_total=0.0))
+                row.count += 1
+                row.self_device_time_total += e.time_range.elapsed_us()
+        rows = list(by_key.values())
         got = {m: sum(e.count for e in rows if m in e.key) for m in expect or {}}
         if fault is None and got != (expect or {}):
             fault = f"launches recorded {got}, made {expect}"
@@ -1866,8 +1898,9 @@ def launch_modules() -> tuple:
     from repro_torch.kernels.exp_delta import kernel as EK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.ssd import kernel as SK
 
-    return K, BK, FK, EK
+    return K, BK, FK, EK, SK
 
 
 @contextlib.contextmanager
@@ -5011,6 +5044,41 @@ WHISPER_TRAIN_STEPS = 3
 # TRAIN_L, a checkpoint every SUPERVISOR_EVERY, a SimulatedFailure at the
 # SUPERVISOR_FAIL call
 SUPERVISOR_STEPS, SUPERVISOR_EVERY, SUPERVISOR_FAIL, SUPERVISOR_B = 4, 2, 4, 2
+# 9e: the SSD backward kernel against its plain version (ref.ssd_bwd_ref)
+# on the same forward workspaces, at (name, (B, L, H, P, N, G), h0 and
+# dh_final nonzero): the Mamba2-1.3B and Zamba2-7B training micro-batches
+# (1 x 4,096 tokens, chunk 256), drawn float32 inputs at the models'
+# decays with b and c bf16-valued, as the models' are.  Each gradient
+# within its relative Frobenius bound: 3xTF32 products (about 2^-20 of a
+# product dropped) and other sum orders; dda, a reverse cumsum over the
+# chunk of row less column sums, collects more of that rounding.
+SSD_BWD_CASES = (("mamba2-1.3b train", (1, 4096, 64, 64, 128, 1), False),
+                 ("zamba2-7b train", (1, 4096, 112, 64, 64, 2), True))
+SSD_BWD_FROBENIUS = {"dxdt": 1e-4, "dda": 1e-3, "db": 1e-4, "dc": 1e-4, "dh0": 1e-4}
+# the device kernels of one backward call (chunk sums, the pass over
+# chunks, column tiles, row tiles, dda, group sums)
+SSD_BWD_KERNELS = 6
+# TF32 passes of the backward's nine products, in ssd_bwd_work's order
+# (scores c.b, dy.xdt, dxdt's, db's and dc's intra parts, then the four
+# state products): the kernel takes three for each; the least the card
+# could take on bf16-valued b and c is one for the scores
+SSD_BWD_PASSES = (1,) + (3,) * 8
+# 9f: Mamba2-1.3B (all 48 layers) and Zamba2-7B (width in full, depth cut
+# to ZAMBA_TRAIN_SLOTS of its 81 slots: at 16 bytes a parameter, bf16
+# weights, float32 summed gradients, bf16 gradients and AdamW's two
+# float32 moments, its 5.77 B parameters would need 92 GB of the card's
+# 80; 25 slots keep 4 shared-block calls and 21 Mamba2 layers, 2.08 B
+# parameters, 33 GB; the run logs its own count) through make_train_step
+# on SSM_TRAIN_B x 4,096 tokens
+# of the Zipf corpus in SSM_TRAIN_MICRO micro-batches: a step against the
+# same step through the plain versions (9b's bounds), a profiler window,
+# SSM_TRAIN_STEPS AdamW steps at SSM_TRAIN_LR (at 9b's 1e-3 the first step,
+# which moves every weight by about 1e-3, 5% of a He-scaled weight of
+# width 2,048, raised Mamba2-1.3B's loss from 11.29 to 22.46 on an NVIDIA
+# H100 80GB HBM3 at 700 W)
+SSM_TRAIN_B, SSM_TRAIN_L, SSM_TRAIN_MICRO, SSM_TRAIN_STEPS = 2, 4096, 2, 3
+SSM_TRAIN_LR = 1e-4
+ZAMBA_TRAIN_SLOTS = 25
 
 
 class _DecodeRows:
@@ -5456,9 +5524,12 @@ def time_flash_bwd(torch, dev, checks: dict, train: dict) -> dict:
             "shapes": shapes, "cases": checks}
 
 
-# 9b's step device time by kernel: (group, name fragments, lowercased), the
-# first group whose fragment a kernel's name holds; the rest is "other"
-TRAIN_SPLIT = (("flash backward", ("flash_attention_bwd",)),
+# 9b's and 9f's step device time by kernel: (group, name fragments,
+# lowercased), the first group whose fragment a kernel's name holds; the
+# rest is "other"
+TRAIN_SPLIT = (("ssd backward", ("ssd_bwd_",)),
+               ("ssd forward", ("::ssd_",)),
+               ("flash backward", ("flash_attention_bwd",)),
                ("flash forward", ("flash_attention",)),
                ("matrix products", ("gemm", "xmma", "nvjet", "cutlass")))
 
@@ -5481,12 +5552,15 @@ def _to(batch: dict, dev) -> dict:
 
 
 def _grad_compare(torch, got: dict, want: dict) -> dict:
-    """Global norms and the worst per-leaf cosine of two gradient trees."""
+    """Global norms and the worst per-leaf cosine of two gradient trees
+    (an empty leaf, such as a hybrid's tail of no layers, has none)."""
     from repro_torch.optim.grad_utils import global_norm
     from repro_torch.tree import leaves_with_paths
 
     worst = (math.inf, "")
     for (path, g), (_, w) in zip(leaves_with_paths(got), leaves_with_paths(want)):
+        if g.numel() == 0:
+            continue
         g, w = g.float().flatten(), w.float().flatten()
         cos = float(torch.dot(g, w) / (g.norm() * w.norm()).clamp(min=1e-30))
         worst = min(worst, (cos, "/".join(path)))
@@ -5504,28 +5578,48 @@ def train_corpus(vocab: int, n: int = 2_000_000):
     return synthetic_corpus(DataConfig(vocab=vocab, seq_len=1, global_batch=1), n)
 
 
-def run_training_phase(torch, dev, corpus, smoke: bool = False, b: int = TRAIN_B,
-                       l: int = TRAIN_L, n_micro: int = TRAIN_MICRO, steps: int = TRAIN_STEPS,
+def run_training_phase(torch, dev, corpus, arch: str = "smollm-135m", smoke: bool = False,
+                       b: int = TRAIN_B, l: int = TRAIN_L, n_micro: int = TRAIN_MICRO,
+                       steps: int = TRAIN_STEPS, lr: float = TRAIN_LR, slots: int | None = None,
                        phase: str = "phase 9b") -> dict:
-    """9b: SmolLM-135M (all 30 layers) through ``make_train_step``: one
-    step's loss and gradients (``accumulate_grads`` over ``n_micro``
-    micro-batches of a ShardedLoader batch of b x l), counts reset just
-    before and read just after (flash forward and backward once a layer a
-    micro-batch), against the same step through the plain versions; a
-    profiler window over one training step (host and device ms, tokens/s);
-    then ``steps`` AdamW steps on that batch (warmup 1), whose loss must
-    fall."""
+    """9b and 9f: ``arch`` (``slots`` cuts its depth, as 9f cuts
+    Zamba2-7B's) through ``make_train_step``: one step's loss and gradients
+    (``accumulate_grads`` over ``n_micro`` micro-batches of a ShardedLoader
+    batch of b x l), counts reset just before and read just after
+    (``train_launches``), against the same step through the plain versions
+    (``plain_flash_train`` and ``plain_ssd_train``) within 9b's bounds; a
+    profiler window over one training step (host and device ms, tokens/s,
+    device time by kernel); then ``steps`` AdamW steps at ``lr`` (warmup 1)
+    on that batch, whose loss must fall.  Returns the model and its initial
+    parameters beside the readings."""
+    from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, ShardedLoader
     from repro_torch.launch import make_train_step
     from repro_torch.optim import AdamWConfig, accumulate_grads, adamw_init
+    from repro_torch.tree import leaves
 
-    model, params = family_model(torch, dev, "smollm-135m", smoke)
+    model, params = family_model(torch, dev, arch, smoke,
+                                 **({"n_layers": slots} if slots else {}))
     cfg = model.cfg
-    loader = ShardedLoader(DataConfig(vocab=cfg.vocab, seq_len=l, global_batch=b),
-                           corpus=corpus)
+    if int(corpus.max()) >= cfg.vocab:
+        raise ValueError(f"{phase}: the corpus holds tokens past the vocabulary {cfg.vocab}")
+    n_params = sum(t.numel() for t in leaves(params))
+    cut = ""
+    if slots:
+        # the full depth's count: this one's and the Mamba2 layers it cut
+        full = get_config(arch, smoke=smoke)
+        per = sum(t[0, 0].numel() for t in leaves(params["seg_layers"]))
+        n_full = n_params + per * (layer_counts(full)[0] - layer_counts(cfg)[0])
+        cut = (f", depth cut from {full.n_layers} to {cfg.n_layers} slots ({layer_counts(cfg)[0]} "
+               f"Mamba2 layers, {layer_counts(cfg)[1]} shared-block calls; at 16 B a parameter "
+               f"{16 * n_params / 1e9:.1f} GB, where the full depth's {n_full / 1e9:.3f} B "
+               f"parameters would take {16 * n_full / 1e9:.1f} GB of the card's 80)")
+    loader = ShardedLoader(DataConfig(vocab=cfg.vocab, seq_len=l, global_batch=b), corpus=corpus)
     batch = _to(loader.batch_at(0), dev)
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     for m in launch_modules():
         m.reset_launches()
     t0 = time.perf_counter()
@@ -5533,32 +5627,37 @@ def run_training_phase(torch, dev, corpus, smoke: bool = False, b: int = TRAIN_B
     sync()
     first_s = time.perf_counter() - t0
     launches = {k: v for m in launch_modules() for k, v in m.LAUNCHES.items()}
+    expect = train_launches(cfg, n_micro)
     if on_card:
-        expect_launches(phase, launches, {"flash_attention": cfg.n_layers * n_micro,
-                                          "flash_attention_bwd": cfg.n_layers * n_micro})
-    with uncounted(), plain_flash_train():
+        expect_launches(phase, launches, expect)
+    t0 = time.perf_counter()
+    with uncounted(), plain_flash_train(), plain_ssd_train():
         p_loss, p_grads = accumulate_grads(model.loss, params, batch, n_micro)
     cmp = _grad_compare(torch, grads, p_grads)
+    plain_s = time.perf_counter() - t0
     del grads, p_grads
-    log(f"{phase}: {cfg.name}, {cfg.n_layers} layers, {n_micro} micro-batches of "
-        f"{b // n_micro} x {l}: loss {float(loss):.6f} through the kernels, "
-        f"{float(p_loss):.6f} plain; gradient norm {cmp['norm']:.6f} against "
-        f"{cmp['plain_norm']:.6f}; worst leaf cosine {cmp['cosine']:.6f} ({cmp['worst_leaf']}); "
-        f"launches {dict((k, v) for k, v in launches.items() if v)}; first step {first_s:.2f} s")
+    log(f"{phase}: {cfg.name}, {cfg.n_layers} {'slots' if slots else 'layers'}, width "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters{cut}; {n_micro} micro-batches of "
+        f"{b // n_micro} x {l}: loss {float(loss):.6f} through the kernels, {float(p_loss):.6f} "
+        f"plain; gradient norm {cmp['norm']:.6f} against {cmp['plain_norm']:.6f}; worst leaf "
+        f"cosine {cmp['cosine']:.6f} ({cmp['worst_leaf']}); launches "
+        f"{dict((k, v) for k, v in launches.items() if v)} (expected {expect}); first step "
+        f"{first_s:.2f} s, the plain step and the comparison {plain_s:.2f} s")
     if not (abs(float(loss) - float(p_loss)) <= TRAIN_LOSS_RTOL * abs(float(p_loss))
             and abs(cmp["norm"] - cmp["plain_norm"]) <= TRAIN_GNORM_RTOL * cmp["plain_norm"]
             and cmp["cosine"] >= TRAIN_COSINE):
         raise AssertionError(f"{phase}: the step through the kernels parts from the plain one")
 
-    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps),
-                           n_micro)
+    step = make_train_step(model, AdamWConfig(lr=lr, warmup_steps=1, total_steps=steps), n_micro)
     state = adamw_init(params)
     device_ms = split = None
+    t0 = time.perf_counter()
     if on_card:
         rows = device_rows(lambda: step(params, state, batch), f"{phase} one training step",
                            repeatable=True)
         device_ms = sum(e.self_device_time_total for e in rows) / 1e3
         split = device_split(rows, TRAIN_SPLIT)
+    window_s = time.perf_counter() - t0
     losses, times = [], []
     p = params
     for _ in range(steps):
@@ -5567,16 +5666,20 @@ def run_training_phase(torch, dev, corpus, smoke: bool = False, b: int = TRAIN_B
         p, state, met = step(p, state, batch)
         losses.append(float(met["loss"]))
         times.append(time.perf_counter() - t0)
+    del p, state
     host_ms = 1e3 * sum(times[1:]) / max(1, len(times) - 1)
-    log(f"{phase}: {steps} AdamW steps on one batch (lr {TRAIN_LR}, warmup 1): losses "
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    log(f"{phase}: {steps} AdamW steps on one batch (lr {lr}, warmup 1): losses "
         f"{[round(x, 4) for x in losses]}; host {host_ms:.1f} ms a step, device "
         f"{'not measured' if device_ms is None else f'{device_ms:.1f} ms'} a step (one profiler "
-        f"window; by kernel {split}), {b * l / host_ms * 1e3:.0f} tokens/s")
+        f"window of {window_s:.2f} s; by kernel {split}), {b * l / host_ms * 1e3:.0f} tokens/s; "
+        f"peak {'not measured' if peak is None else f'{peak:.1f} GiB'} allocated")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: the loss did not fall: {losses}")
-    return {"launches": launches, "loss": float(loss), "plain_loss": float(p_loss), **cmp,
-            "losses": losses, "host_ms": host_ms, "device_ms": device_ms, "device_split": split,
-            "tokens_per_s": b * l / host_ms * 1e3, "model": model, "params": params}
+    return {"launches": launches, "expect": expect, "loss": float(loss),
+            "plain_loss": float(p_loss), **cmp, "losses": losses, "host_ms": host_ms,
+            "device_ms": device_ms, "device_split": split, "tokens_per_s": b * l / host_ms * 1e3,
+            "n_params": n_params, "model": model, "params": params}
 
 
 def run_whisper_training(torch, dev, corpus, smoke: bool = False, b: int = WHISPER_B,
@@ -5619,6 +5722,154 @@ def run_whisper_training(torch, dev, corpus, smoke: bool = False, b: int = WHISP
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: the loss did not fall: {losses}")
     return {"losses": losses, "launches": launches, "wall": wall}
+
+
+def ssd_bwd_case(torch, dev, shape: tuple, nonzero: bool, seed: int = 11) -> tuple:
+    """One SSD_BWD_CASES case: ``ssd_case``'s inputs (h0 nonzero or zero)
+    with b and c rounded to bf16 values, a unit-normal dy and dh_final
+    (or None)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xdt, da, b, c, h0 = ssd_case(torch, dev, gen, shape, h0=nonzero)
+    bsz, l, h, p, n, _ = shape
+    if h0 is None:
+        h0 = torch.zeros((bsz, h, n, p), device=dev)
+    dy = torch.randn((bsz, l, h, p), generator=gen, device=dev)
+    dhf = torch.randn((bsz, h, n, p), generator=gen, device=dev) if nonzero else None
+    return xdt, da, b.bfloat16().float(), c.bfloat16().float(), h0, dy, dhf
+
+
+def ssd_bwd_work(bsz: int, l: int, h: int, p: int, n: int, q: int, g: int,
+                 with_dh: bool) -> tuple:
+    """(bytes, causal operations of each product) of one backward call:
+    each input read once (xdt, dy, b and c per group, the forward's cum and
+    states, h_final and dh_final when given) and each output written once
+    (dxdt, dda, db, dc, dh0), float32; per (batch, head, chunk) 2 Q(Q+1)/2
+    N for the scores c.b, 2 Q(Q+1)/2 P each for dy.xdt and dxdt's intra
+    part, 2 Q(Q+1)/2 N each for db's and dc's, and 2 Q N P each for the
+    four state products (dxdt's and db's G terms, dc's h term, the reverse
+    pass's input)."""
+    nc = l // q
+    nbytes = 4 * (3 * bsz * l * h * p + 4 * bsz * l * g * n + 2 * bsz * h * l
+                  + bsz * nc * h * n * p + (3 if with_dh else 1) * bsz * h * n * p)
+    blocks, tri = bsz * h * nc, q * (q + 1) // 2
+    return nbytes, tuple(2 * k * blocks for k in (tri * n, tri * p, tri * p, tri * n, tri * n,
+                                                  q * n * p, q * n * p, q * n * p, q * n * p))
+
+
+def check_ssd_bwd(torch, dev, cases=SSD_BWD_CASES, phase: str = "phase 9e") -> dict:
+    """9e: at each case the forward kernel's workspaces, then the backward
+    kernel against ``ref.ssd_bwd_ref`` on them: every gradient finite and
+    within SSD_BWD_FROBENIUS; the kernel timed (CUDA events, and the
+    profiler's device time of its six kernels) beside the plain backward's
+    events and both bounds.  Launches here are left out of the counts."""
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd import ref as SR
+
+    q, out = 256, {}
+    with uncounted():
+        for name, shape, nonzero in cases:
+            xdt, da, b, c, h0, dy, dhf = ssd_bwd_case(torch, dev, shape, nonzero)
+            _, hf, cum, states = SK.ssd(xdt, da, b, c, h0, chunk=q, workspaces=True)
+            got = SK.ssd_bwd(xdt, b, c, dy, cum, states, hf, dhf, chunk=q)
+            want = SR.ssd_bwd_ref(xdt, b, c, dy, dhf, cum, states, q)
+            torch.cuda.synchronize()
+            frob = {k: float((gr - w).norm() / w.norm())
+                    for k, gr, w in zip(SSD_BWD_FROBENIUS, got, want)}
+            err = max(float((gr - w).abs().max()) for gr, w in zip(got, want))
+            finite = all(bool(torch.isfinite(gr).all()) for gr in got)
+            del got, want
+            run = lambda i: SK.ssd_bwd(xdt, b, c, dy, cum, states, hf, dhf, chunk=q)  # noqa: E731
+            plain = lambda i: SR.ssd_bwd_ref(xdt, b, c, dy, dhf, cum, states, q)  # noqa: E731
+            k_ms = cuda_time_ms(run, iters=10)
+            k_dev = device_ms(run, "::ssd_bwd_", 10, SSD_BWD_KERNELS)
+            p_ms = cuda_time_ms(plain, iters=2, warmup=1)
+            bsz, l, h, p, n, g = shape
+            nbytes, products = ssd_bwd_work(bsz, l, h, p, n, q, g, nonzero)
+            bounds = ssd_bounds(nbytes, products, SSD_BWD_PASSES)
+            all3 = ssd_bounds(nbytes, products, (3,) * len(products))
+            log(f"{phase}: ssd backward, {name} B L H P N G = {shape}, h0 and dh_final "
+                f"{'nonzero' if nonzero else 'zero'}: relative Frobenius "
+                f"{ {k: float(f'{v:.3g}') for k, v in frob.items()} } (bounds "
+                f"{SSD_BWD_FROBENIUS}), max abs err {err:.3g}; {k_ms:.4f} / {k_dev:.4f} ms "
+                f"(events / device, {SSD_BWD_KERNELS} kernels a call); bound "
+                f"{bounds['bound_ms']:.4f} ms by {bounds['bound_by']} ({bounds['bound_flops']} "
+                f"TF32 operations: passes {list(SSD_BWD_PASSES)} over {list(products)}; all "
+                f"3xTF32 {all3['bound_ms']:.4f} ms; {nbytes} B), "
+                f"{bounds['bound_ms'] / k_dev:.3f} of it; float32 CUDA-core bound "
+                f"{bounds['f32_bound_ms']:.4f} ms; plain {p_ms:.4f} ms (events)")
+            if not finite or any(frob[k] > SSD_BWD_FROBENIUS[k] for k in frob):
+                raise AssertionError(f"{phase}: the SSD backward kernel differs from plain "
+                                     f"at {name}: {frob}")
+            out[name] = {"shape": list(shape), "chunk": q, "kernels_per_call": SSD_BWD_KERNELS,
+                         "frobenius": frob, "max_abs_err": err, "ms": k_ms, "device_ms": k_dev,
+                         "plain_ms": p_ms, **bounds, "bound_ms_3xtf32": all3["bound_ms"],
+                         "bound_share": bounds["bound_ms"] / k_dev}
+            del xdt, da, b, c, h0, dy, dhf, hf, cum, states
+    return out
+
+
+@contextlib.contextmanager
+def plain_ssd_train():
+    """Route the differentiable SSD scan's forward and backward
+    (``ops.SSDScan``) through their plain PyTorch versions on the card, for
+    one comparison: the kernel wrappers it calls are replaced for the
+    duration."""
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd import ref as SR
+
+    saved = SK.ssd, SK.ssd_bwd
+
+    def forward(xdt, da, b, c, h0, *, chunk, workspaces=False):
+        return SR.ssd_chunked(xdt, da, b, c, h0, chunk, workspaces=workspaces)
+
+    def backward(xdt, b, c, dy, cum, states, h_final, dh_final, *, chunk):
+        return SR.ssd_bwd_ref(xdt, b, c, dy, dh_final, cum, states, chunk)
+
+    SK.ssd, SK.ssd_bwd = forward, backward
+    try:
+        yield
+    finally:
+        SK.ssd, SK.ssd_bwd = saved
+
+
+def layer_counts(cfg) -> tuple:
+    """(Mamba2 layers, attention layers) of a config: a hybrid's attention
+    layers are its shared-block calls."""
+    from repro_torch.models.hybrid import hybrid_counts
+
+    if cfg.family == "ssm":
+        return cfg.n_layers, 0
+    if cfg.family == "hybrid":
+        n_attn, seg_m, tail = hybrid_counts(cfg)
+        return n_attn * seg_m + tail, n_attn
+    return 0, cfg.n_layers
+
+
+def train_launches(cfg, n_micro: int) -> dict:
+    """The launches one ``accumulate_grads`` over ``n_micro`` micro-batches
+    makes: each attention layer's flash forward and backward once a
+    micro-batch (remat's checkpoint segments leave flash out); each Mamba2
+    layer's scan forward once and, under ``cfg.remat`` (each layer a
+    checkpoint segment, run again in the backward), twice, its backward
+    once."""
+    mamba, n_attn = layer_counts(cfg)
+    return {"ssd": mamba * n_micro * (2 if cfg.remat else 1), "ssd_bwd": mamba * n_micro,
+            "flash_attention": n_attn * n_micro, "flash_attention_bwd": n_attn * n_micro}
+
+
+def time_ssd_bwd(checks: dict, trains: dict) -> dict:
+    """The SSD backward's row: 9e's Mamba2-1.3B case (its times, bounds and
+    errors), Zamba2-7B's under ``shapes``; its launches those of 9f's
+    Mamba2 step."""
+    first, *rest = checks.values()
+    per_step = {arch: t["launches"]["ssd_bwd"] for arch, t in trains.items()}
+    return {"name": "ssd_bwd", "route": "cuda", "source": "src/repro_torch/csrc/ssd_bwd.cu",
+            "replaces": "src/repro/models/ssm.py:116",
+            "replaces_note": "JAX's autodiff of _ssd_scan_body under jax.checkpoint "
+                             "(ssd_scan, :81); no Pallas kernel",
+            "launches": per_step["mamba2-1.3b"], "launches_per_train_step": per_step,
+            **first, "library_ms": None, "library": "none", "shapes": rest,
+            "cases": list(checks)}
 
 
 def run_supervisor_phase(torch, model, params, tmp: str, corpus, b: int = SUPERVISOR_B,
@@ -5834,6 +6085,21 @@ def main() -> int:
     whisper_train = run_whisper_training(torch, dev, corpus)
     torch.cuda.empty_cache()
     mark("9c")
+    ssd_bwd_checks = check_ssd_bwd(torch, dev)
+    torch.cuda.empty_cache()
+    mark("9e")
+    ssm_train = {}
+    zamba_corpus = train_corpus(get_config("zamba2-7b").vocab, 16 * SSM_TRAIN_B * SSM_TRAIN_L)
+    for arch, tokens, slots, phase in (("mamba2-1.3b", corpus, None, "phase 9f"),
+                                       ("zamba2-7b", zamba_corpus, ZAMBA_TRAIN_SLOTS,
+                                        "phase 9f zamba2")):
+        run = run_training_phase(torch, dev, tokens, arch, b=SSM_TRAIN_B, l=SSM_TRAIN_L,
+                                 n_micro=SSM_TRAIN_MICRO, steps=SSM_TRAIN_STEPS,
+                                 lr=SSM_TRAIN_LR, slots=slots, phase=phase)
+        del run["model"], run["params"]
+        ssm_train[arch] = run
+        torch.cuda.empty_cache()
+    mark("9f")
 
     # phase 6, its parts marked 6.1 to 6.7
     kernels = time_kernels(torch, cache, keeps, errs, {
@@ -5862,8 +6128,11 @@ def main() -> int:
     mark("6.7 phase 8 shapes")
     kernels.append(time_flash_bwd(torch, dev, flash_bwd_checks, train))
     mark("6.8 flash backward")
+    kernels.append(time_ssd_bwd(ssd_bwd_checks, ssm_train))
     train_launches = collections.Counter(train["launches"])
     train_launches.update(whisper_train["launches"])
+    for run in ssm_train.values():
+        train_launches.update(run["launches"])
     for k in kernels:
         # the kernel's launches over phase 3p's three timed runs
         k["launches_phase_3p"] = sum(run["launches"].get(k["name"], 0)
@@ -5876,8 +6145,8 @@ def main() -> int:
         # over phase 8: 8a's and 8b's serving runs, 8c's and 8d's prefill
         # and decode steps
         k["launches_phase_8"] = phase8["launches"].get(k["name"], 0)
-        # phase 3t's four serving runs; phase 9b's step through the kernels
-        # and 9c's three Whisper steps
+        # phase 3t's four serving runs; phase 9b's step through the kernels,
+        # 9c's three Whisper steps and 9f's two steps through the kernels
         k["launches_phase_3t"] = staged["launches"].get(k["name"], 0)
         k["launches_phase_9"] = train_launches.get(k["name"], 0)
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err"):
@@ -5916,7 +6185,9 @@ def main() -> int:
         f"{staged['runs']['padded']['rep']['decode_tok_per_s']:.1f} (bucketed "
         f"{staged['runs']['bucketed']['rep']['decode_tok_per_s']:.1f}); smollm-135m training "
         f"{train['host_ms']:.1f} ms a step, {train['tokens_per_s']:.0f} tokens/s; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+        + "; ".join(f"{arch} training {r['host_ms']:.1f} ms a step, {r['tokens_per_s']:.0f} "
+                    f"tokens/s" for arch, r in ssm_train.items())
+        + f"; total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,9 @@ They run eagerly where the parameters and the inputs lie; nothing moves
 data between devices.  Greedy here; the serving engine composes decode
 with the sampler.  Every family's model has ``prefill`` and ``decode``
 (dense, MoE and VLM through the transformer's whole-prompt prefill, SSM,
-hybrid and enc-dec through their own), so both serving steps run all six;
-the train step runs the families whose ``loss`` is ported (dense, MoE,
-VLM, enc-dec).
+hybrid and enc-dec through their own), so both serving steps run all six,
+and so does the train step: every family's ``loss`` is ported (dense,
+MoE, VLM, SSM, hybrid and enc-dec).
 """
 
 from __future__ import annotations

@@ -26,14 +26,23 @@ token's k/v into the given cache's k/v rows in place (as the dense family
 does), so the cache must first be padded to the decode length
 (``models.model.prepare_decode_cache``).
 
-The training losses raise here: they need a backward of the SSD scan
-(``csrc/ssd.cu`` is forward only) and come with the SSD-backward training
-slice.
+The training losses (:func:`ssm_lm_loss`, :func:`hybrid_loss`) are the
+reference's: the embedding, the stack over the whole sequence, the final
+norm and :func:`repro_torch.models.transformer.chunked_ce` (labels -1
+ignored).  The SSD scan differentiates through ``ops.SSDScan`` (the
+hand-written backward kernel on the card), the shared block through the
+flash backward.  Where ``cfg.remat`` asks for rematerialisation (and grad
+mode is on), each Mamba2 layer runs as one ``torch.utils.checkpoint``
+segment (its forward, the SSD scan included, runs again in the backward)
+and the shared block as :func:`~repro_torch.models.transformer.train_block`
+runs it, two segments around its flash call; memory changes, the numbers
+do not.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models.layers import (
     embed_apply,
@@ -47,7 +56,7 @@ from repro_torch.models.layers import (
     stack_layers,
 )
 from repro_torch.models.ssm import ssm_apply, ssm_decode_step, ssm_init_cache, ssm_params
-from repro_torch.models.transformer import block_apply, block_params
+from repro_torch.models.transformer import block_apply, block_params, chunked_ce, train_block
 
 
 def _mamba_layer_params(generator: torch.Generator, cfg, dtype) -> dict:
@@ -61,6 +70,15 @@ def _mamba_layer_seq(lp: dict, x: torch.Tensor, cfg, initial=None):
     h = rmsnorm(x, lp["ln"], cfg.norm_eps)
     y, cache = ssm_apply(lp["ssm"], h, cfg, initial=initial)
     return x + y, cache
+
+
+def _mamba_layer_train(lp: dict, x: torch.Tensor, cfg, remat: bool) -> torch.Tensor:
+    """One Mamba2 layer of the training forward (no cache), one checkpoint
+    segment under ``remat``."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(
+            lambda x: _mamba_layer_seq(lp, x, cfg)[0], x, use_reentrant=False)
+    return _mamba_layer_seq(lp, x, cfg)[0]
 
 
 def _mamba_layer_step(lp: dict, x_t: torch.Tensor, cache: dict, cfg):
@@ -103,21 +121,30 @@ def init_ssm_lm_params(cfg, generator: torch.Generator) -> dict:
     return params
 
 
-def _ssm_stack_seq(params: dict, cfg, x: torch.Tensor):
-    """Every layer over the sequence; returns (x, stacked layer caches)."""
+def _ssm_stack_seq(params: dict, cfg, x: torch.Tensor, want_cache: bool = True,
+                   remat: bool = False):
+    """Every layer over the sequence; returns (x, stacked layer caches), or
+    (x, None) without ``want_cache`` (the training forward, each layer a
+    checkpoint segment under ``remat``)."""
     caches = []
     for i in range(cfg.n_layers):
-        x, layer_cache = _mamba_layer_seq(layer_slice(params["layers"], i), x, cfg)
-        caches.append(layer_cache)
-    return x, stack_layers(caches)
+        lp = layer_slice(params["layers"], i)
+        if want_cache:
+            x, layer_cache = _mamba_layer_seq(lp, x, cfg)
+            caches.append(layer_cache)
+        else:
+            x = _mamba_layer_train(lp, x, cfg, remat)
+    return x, stack_layers(caches) if want_cache else None
 
 
 def ssm_lm_loss(params, cfg, batch):
-    raise NotImplementedError(
-        "ssm_lm_loss is not ported yet: it needs a backward of the SSD scan "
-        "(csrc/ssd.cu is forward only) and comes with the SSD-backward "
-        "training slice (ROADMAP queue 1)"
-    )
+    """batch {'tokens', 'labels': (B, S) int} -> the scalar float32
+    training loss (reference ``ssm_lm_loss``)."""
+    x = embed_apply(params["embed"], batch["tokens"].long())
+    remat = bool(cfg.remat) and torch.is_grad_enabled()
+    x, _ = _ssm_stack_seq(params, cfg, x, want_cache=False, remat=remat)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return chunked_ce(x, _head_w(params), batch["labels"], cfg.vocab)
 
 
 def _logits(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -202,44 +229,70 @@ def init_hybrid_params(cfg, generator: torch.Generator) -> dict:
     return params
 
 
+def _hybrid_seq(params: dict, cfg, x: torch.Tensor, pos: torch.Tensor,
+                want_cache: bool = True, remat: bool = False):
+    """The hybrid stack over the whole sequence (reference ``_hybrid_seq``):
+    the segments' Mamba2 layers and shared-block calls, then the tail.
+    Returns (x, cache without 'len'), or (x, None) without ``want_cache``
+    (the training forward: Mamba2 layers as :func:`_mamba_layer_train`
+    runs them, the shared block as ``train_block`` does, both under
+    ``remat``)."""
+    n_attn, seg_m, tail = hybrid_counts(cfg)
+    seg_caches, ks, vs, tail_caches = [], [], [], []
+
+    def mamba(lp, x, caches):
+        if not want_cache:
+            return _mamba_layer_train(lp, x, cfg, remat)
+        x, layer_cache = _mamba_layer_seq(lp, x, cfg)
+        caches.append(layer_cache)
+        return x
+
+    for i in range(n_attn):
+        seg_lp = layer_slice(params["seg_layers"], i)
+        caches = []
+        for j in range(seg_m):
+            x = mamba(layer_slice(seg_lp, j), x, caches)
+        if want_cache:
+            seg_caches.append(stack_layers(caches))
+            x, (k, v) = block_apply(params["shared"], x, cfg, pos=pos)
+            ks.append(k)
+            vs.append(v)
+        else:
+            x, _ = train_block(params["shared"], x, pos, cfg, remat)
+    for j in range(tail):
+        x = mamba(layer_slice(params["tail_layers"], j), x, tail_caches)
+    if not want_cache:
+        return x, None
+    return x, {
+        "seg_ssm": stack_layers(seg_caches),
+        "tail_ssm": _stacked_caches(tail_caches, cfg, x.shape[0], x.device),
+        "k": torch.stack(ks),
+        "v": torch.stack(vs),
+    }
+
+
 def hybrid_loss(params, cfg, batch):
-    raise NotImplementedError(
-        "hybrid_loss is not ported yet: it needs a backward of the SSD scan "
-        "(csrc/ssd.cu is forward only) and comes with the SSD-backward "
-        "training slice (ROADMAP queue 1)"
-    )
+    """batch {'tokens', 'labels': (B, S) int} -> the scalar float32
+    training loss (reference ``hybrid_loss``)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_apply(params["embed"], tokens.long())
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    remat = bool(cfg.remat) and torch.is_grad_enabled()
+    x, _ = _hybrid_seq(params, cfg, x, pos, want_cache=False, remat=remat)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return chunked_ce(x, _head_w(params), batch["labels"], cfg.vocab)
 
 
 def hybrid_prefill(params: dict, cfg, batch: dict):
     """batch {'tokens': (B, L) int} -> (last-token logits (B, Vpad) f32,
     cache with L rows of k/v per shared-block call)."""
-    n_attn, seg_m, tail = hybrid_counts(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed_apply(params["embed"], tokens.long())
     pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-    seg_caches, ks, vs = [], [], []
-    for i in range(n_attn):
-        seg_lp = layer_slice(params["seg_layers"], i)
-        caches = []
-        for j in range(seg_m):
-            x, layer_cache = _mamba_layer_seq(layer_slice(seg_lp, j), x, cfg)
-            caches.append(layer_cache)
-        seg_caches.append(stack_layers(caches))
-        x, (k, v) = block_apply(params["shared"], x, cfg, pos=pos)
-        ks.append(k)
-        vs.append(v)
-    tail_caches = []
-    for j in range(tail):
-        x, layer_cache = _mamba_layer_seq(layer_slice(params["tail_layers"], j), x, cfg)
-        tail_caches.append(layer_cache)
-    cache = {
-        "seg_ssm": stack_layers(seg_caches),
-        "tail_ssm": _stacked_caches(tail_caches, cfg, b, x.device),
-        "k": torch.stack(ks),
-        "v": torch.stack(vs),
-        "len": torch.tensor(s, dtype=torch.int32, device=x.device),
-    }
+    x, cache = _hybrid_seq(params, cfg, x, pos)
+    cache["len"] = torch.tensor(s, dtype=torch.int32, device=x.device)
     return _logits(params, cfg, x[:, -1]), cache
 
 

@@ -27,9 +27,8 @@ enc-dec (:class:`EncDecModel`, Whisper; a batch carries ``'frames'``):
     decode(params, token, cache)                      -> (logits, cache)
     init_cache(batch, max_len=None, device=None)      -> zeroed decode cache
 
-``loss`` is the training loss, differentiable with torch autograd (the
-flash kernel's backward on the card); the SSM and hybrid losses raise
-until the SSD scan has a backward.
+``loss`` is the training loss, differentiable with torch autograd (on the
+card through the flash and SSD kernels' hand-written backwards).
 
 The hybrid's decode cache holds one dense KV cache per shared-block call
 and the enc-dec's a self-attention cache per decoder layer; both write a

@@ -3,9 +3,11 @@ the reference's ``models/ssm.py``).
 
 Within chunks of Q tokens the token mixing is the quadratic form masked by
 the decay kernel; across chunks a linear recurrence carries the (H, N, P)
-state.  Prefill runs the chunked scan through :func:`repro_torch.kernels.
-ssd.ops.ssd` (the hand-written kernel on CUDA); decode is the O(1)
-recurrent step in plain PyTorch, as in the reference.
+state.  Prefill and the training forward run the chunked scan through
+:func:`repro_torch.kernels.ssd.ops.ssd` (the hand-written kernel on CUDA;
+under autograd ``ops.SSDScan``, whose backward is the hand-written
+``csrc/ssd_bwd.cu``); decode is the O(1) recurrent step in plain PyTorch,
+as in the reference.
 
 Projections are stored unfused (separate z/x/B/C/dt matrices), as in the
 reference.  The rounding points are the reference's: products and the
@@ -93,7 +95,8 @@ def ssd_scan(xdt, da, b, c, h0=None, chunk: int = 256):
     inside); b/c (B, L, G, N) per group, G dividing H (head h reads group
     h // (H / G); the reference passes them expanded to heads, which is
     G = H); all float32.  Returns (y (B, L, H, P), h_final (B, H, N, P))
-    float32.  Runs the SSD kernel on CUDA tensors."""
+    float32.  Runs the SSD kernel on CUDA tensors, differentiably (its
+    backward kernel under autograd)."""
     return ssd_ops.ssd(xdt, da, b, c, h0=h0, chunk=chunk)
 
 

@@ -1,8 +1,9 @@
 """``chip_smoke.py``'s phases 3t and 9 on the CPU at SMOKE size, where the
 kernel wrappers run their plain versions: the staged and unstaged runs,
-padded against bucketed admission, the training step, Whisper's training
-and the supervisor's recovery run their checks end to end (the launch
-counts, which a CPU run does not make, are the card's to check)."""
+padded against bucketed admission, the training step, Whisper's training,
+Mamba2's and Zamba2's training (9f) and the supervisor's recovery run their
+checks end to end (the launch counts, which a CPU run does not make, are
+the card's to check; their expected values are pinned here)."""
 
 import sys
 from pathlib import Path
@@ -124,6 +125,68 @@ def test_plain_flash_train_swaps_the_kernel_wrappers_and_restores_them():
     assert (FK.flash_attention, FK.flash_attention_bwd) == before
 
 
+@pytest.mark.parametrize("arch,slots", [("mamba2-1.3b", None), ("zamba2-7b", 6)])
+def test_ssm_training_phase_runs_its_checks(arch, slots):
+    """9f at SMOKE size: the step through the wrappers (here the plain
+    versions) equals the plain one; the loss falls; Zamba2 cut from 7 to 6
+    slots (one shared-block call, no tail)."""
+    cfg = get_config(arch, smoke=True)
+    out = C.run_training_phase(torch, torch.device("cpu"), C.train_corpus(cfg.vocab, 20_000),
+                               arch, smoke=True, b=2, l=64, n_micro=2, steps=3,
+                               lr=C.SSM_TRAIN_LR, slots=slots)
+    assert out["losses"][-1] < out["losses"][0]
+    assert out["loss"] == out["plain_loss"] and out["cosine"] > 0.9999
+    assert out["device_ms"] is None
+    mamba = 5 if slots else cfg.n_layers
+    assert out["expect"]["ssd"] == 2 * 2 * mamba and out["expect"]["ssd_bwd"] == 2 * mamba
+
+
+def test_training_launches_at_full_width():
+    """The counts 9b and 9f assert on the card: SmolLM-135M's 30 layers,
+    Mamba2-1.3B's 48 and Zamba2-7B's 25 slots (21 Mamba2 layers, 4
+    shared-block calls), two micro-batches, layer remat running each scan
+    forward twice and flash once."""
+    import dataclasses
+
+    smol = C.train_launches(get_config("smollm-135m"), 2)
+    mamba = C.train_launches(get_config("mamba2-1.3b"), 2)
+    zamba = C.train_launches(dataclasses.replace(get_config("zamba2-7b"),
+                                                 n_layers=C.ZAMBA_TRAIN_SLOTS), 2)
+    assert smol == {"ssd": 0, "ssd_bwd": 0, "flash_attention": 60, "flash_attention_bwd": 60}
+    assert mamba == {"ssd": 192, "ssd_bwd": 96, "flash_attention": 0, "flash_attention_bwd": 0}
+    assert zamba == {"ssd": 84, "ssd_bwd": 42, "flash_attention": 8, "flash_attention_bwd": 8}
+
+
+@pytest.mark.parametrize("shape,with_dh,gops,bound", [
+    ((1, 4096, 64, 64, 128, 1), False, 51.674, 0.2783),
+    ((1, 4096, 112, 64, 64, 2), True, 52.760, 0.2893),
+])
+def test_ssd_backward_bound_from_the_shapes(shape, with_dh, gops, bound):
+    """The backward's work at 9e's shapes: nine products (three causal Q x Q
+    x N, two Q x Q x P, four Q x N x P a chunk and head), the scores at one
+    TF32 pass and the rest at three (0.313 and 0.320 ms all at three)."""
+    b, l, h, p, n, g = shape
+    nbytes, products = C.ssd_bwd_work(b, l, h, p, n, 256, g, with_dh)
+    assert abs(sum(products) / 1e9 - gops) < 1e-3
+    bounds = C.ssd_bounds(nbytes, products, C.SSD_BWD_PASSES)
+    assert bounds["bound_by"] == "operations" and abs(bounds["bound_ms"] - bound) < 1e-4
+
+
+def test_plain_ssd_train_swaps_the_kernel_wrappers_and_restores_them():
+    from repro_torch.kernels.ssd import kernel as SK
+
+    before = SK.ssd, SK.ssd_bwd
+    with C.plain_ssd_train():
+        assert SK.ssd is not before[0] and SK.ssd_bwd is not before[1]
+        x = torch.randn(1, 64, 2, 4)
+        bc = torch.randn(1, 64, 1, 8)
+        y, hf, cum, states = SK.ssd(x, -torch.rand(1, 64, 2), bc, bc, torch.zeros(1, 2, 8, 4),
+                                    chunk=32, workspaces=True)
+        grads = SK.ssd_bwd(x, bc, bc, torch.ones_like(y), cum, states, hf, None, chunk=32)
+        assert [t.shape for t in grads] == [x.shape, (1, 64, 2), bc.shape, bc.shape, hf.shape]
+    assert (SK.ssd, SK.ssd_bwd) == before
+
+
 def test_sources_build_the_backward_beside_the_forward():
-    assert "flash_attention_bwd.cu" in C.SOURCES
+    assert "flash_attention_bwd.cu" in C.SOURCES and "ssd_bwd.cu" in C.SOURCES
     assert all((REPO / "src" / "repro_torch" / "csrc" / s).is_file() for s in C.SOURCES)

@@ -1,6 +1,7 @@
 """The training path's CUDA kernels against their plain PyTorch versions on
-the card: the flash forward's log-sum-exp output and the hand-written flash
-backward (``csrc/flash_attention_bwd.cu``).  Every test needs an NVIDIA
+the card: the flash forward's log-sum-exp output, the hand-written flash
+backward (``csrc/flash_attention_bwd.cu``) and the SSD scan's backward
+(``csrc/ssd_bwd.cu``).  Every test needs an NVIDIA
 GPU and ``nvcc``, carries the ``cuda`` marker and skips without a GPU.
 The file imports no JAX, so it runs on the GPU host:
 
@@ -14,6 +15,13 @@ rounding of p or ds; dq, dk and dv are
 each held to two bf16 steps at their own largest magnitude and 1% in
 relative Frobenius norm.  The forward's lse is float32 on both sides (the
 kernel's exp2 with log2(e) folded in): within 1e-3.
+
+The SSD backward against ``ref.ssd_bwd_ref`` on the same inputs and the
+same forward workspaces (float32 both; the kernel's products are 3xTF32,
+about 2^-20 of a product dropped, and its sums run in another order):
+dxdt, db, dc and dh0 within 1e-4 relative Frobenius norm, dda within 1e-3
+(a reverse cumsum over the chunk of row less column sums, which collects
+the rounding of every product in it).
 """
 
 import pytest
@@ -22,10 +30,24 @@ import torch
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as FO
 from repro_torch.kernels.flash_attention import ref as FR
+from repro_torch.kernels.ssd import kernel as SK
+from repro_torch.kernels.ssd import ops as SO
+from repro_torch.kernels.ssd import ref as SR
 
 BF16_STEPS = 2
 FROBENIUS = 1e-2
 LSE_ATOL = 1e-3
+SSD_BWD_FROBENIUS = {"dxdt": 1e-4, "dda": 1e-3, "db": 1e-4, "dc": 1e-4, "dh0": 1e-4}
+
+# SSD backward shapes (B, L, H, P, N, G, chunk, dh_final): small ones (a
+# ragged 64-token tile at chunk 100; N 128 at Mamba2's width, P 32; G = H)
+# and Zamba2-7B's training micro-batch
+SSD_SHAPES = [
+    (2, 300, 4, 32, 16, 2, 100, True),
+    (1, 512, 4, 64, 128, 1, 256, False),
+    (2, 192, 6, 16, 8, 6, 64, True),
+    (1, 4096, 112, 64, 64, 2, 256, False),
+]
 
 # (b, sq, skv, hp, hkv, hd, causal, window, kv_valid, q offset)
 SHAPES = [
@@ -157,3 +179,62 @@ def test_cuda_backward_refuses_a_row_tile_it_cannot_hold():
         FK.flash_attention_bwd(q, k, v, out.contiguous(), dout, lse, q_pos, kv, causal=True,
                                window=0)
     assert FK.LAUNCHES["flash_attention_bwd"] == 0
+
+
+def _ssd_inputs(dev, shape, seed=0):
+    """The forward's inputs at realistic decays (dt in [1e-3, 0.1], A in
+    [-16, -1]), b and c bf16-valued as the models' are, padded to the
+    chunk; dy and dh_final unit normal."""
+    b, l, h, p, n, g, chunk, with_dh = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    a = -(torch.rand((h,), generator=gen, device=dev) * 15 + 1)
+    dt = torch.rand((b, l, h), generator=gen, device=dev) * 0.099 + 1e-3
+    xdt, bg, cg = r(b, l, h, p) * dt[..., None], r(b, l, g, n).bfloat16().float(), \
+        r(b, l, g, n).bfloat16().float()
+    (xdt, da, bg, cg), q = SR.pad_to_chunks(xdt, dt * a, bg, cg, chunk)
+    h0, dy = r(b, h, n, p), r(b, xdt.shape[1], h, p)
+    return xdt, da, bg, cg, h0, dy, r(b, h, n, p) if with_dh else None, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_cuda_ssd_backward_matches_plain(shape):
+    dev = _cuda()
+    xdt, da, b, c, h0, dy, dhf, q = _ssd_inputs(dev, shape)
+    SK.reset_launches()
+    _, hf, cum, states = SK.ssd(xdt, da, b, c, h0, chunk=q, workspaces=True)
+    got = SK.ssd_bwd(xdt, b, c, dy, cum, states, hf, dhf, chunk=q)
+    want = SR.ssd_bwd_ref(xdt, b, c, dy, dhf, cum, states, q)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES == {"ssd": 1, "ssd_bwd": 1}
+    for name, gr, w in zip(SSD_BWD_FROBENIUS, got, want):
+        assert gr.shape == w.shape and bool(torch.isfinite(gr).all()), name
+        frob = float((gr - w).norm() / w.norm())
+        assert frob <= SSD_BWD_FROBENIUS[name], (name, frob)
+    again = SK.ssd_bwd(xdt, b, c, dy, cum, states, hf, dhf, chunk=q)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))  # sums in a fixed order
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_autograd_runs_both_kernels_once():
+    """A differentiable scan on the card launches the forward once and, at
+    backward, the backward kernel once; its gradients are the CPU
+    Function's within the kernel's bounds."""
+    dev = _cuda()
+    xdt, da, b, c, h0, dy, _, q = _ssd_inputs(dev, SSD_SHAPES[0])
+    SK.reset_launches()
+    leaves = [t.clone().requires_grad_() for t in (xdt, da, b, c, h0)]
+    y, _ = SO.ssd(*leaves, chunk=q)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES == {"ssd": 1, "ssd_bwd": 1}
+    cpu = [t.detach().cpu().requires_grad_() for t in (xdt, da, b, c, h0)]
+    y_c, _ = SO.ssd(*cpu, chunk=q)
+    y_c.backward(dy.cpu())
+    for name, gr, w in zip(SSD_BWD_FROBENIUS, leaves, cpu):
+        frob = float((gr.grad.cpu() - w.grad).norm() / w.grad.norm())
+        assert frob <= SSD_BWD_FROBENIUS[name], (name, frob)

@@ -199,12 +199,6 @@ def test_init_without_a_device_needs_a_gpu(models):
         tm.init_cache(2, 48)
 
 
-def test_hybrid_loss_raises_for_the_training_slice(models):
-    _, _, tm, tp = models
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm.loss(tp, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-
-
 def test_scheduler_refuses_the_hybrid_family(models):
     """As in the reference: continuous batching serves dense-cache
     families; the hybrid runs through the step functions."""
