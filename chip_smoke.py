@@ -219,8 +219,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    (``ref.ssd_bwd_ref``) on the forward kernel's workspaces, at the
    Mamba2-1.3B and Zamba2-7B training micro-batches (1 x 4,096 tokens, b
    and c bf16-valued; Zamba2's with h0 and dh_final nonzero): every
-   gradient's relative Frobenius error within its bound, the kernel's
-   device ms against its bound.  9f: full-width Mamba2-1.3B (48 layers)
+   gradient's relative Frobenius error within its bound, a second call
+   the same bits, the kernel's device ms against its bound.  9f:
+   full-width Mamba2-1.3B (48 layers)
    and Zamba2-7B (width in full, depth cut to 25 of its 81 slots, which
    the log reckons) through ``make_train_step`` (2 micro-batches of a
    ShardedLoader batch of 2 x 4,096): one step's loss and gradients,
@@ -265,7 +266,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    ``ring``, the kernel with key positions at phase 7's ring chunk (512
    and 4,096 queries over a 4,096-slot ring and themselves, Mixtral's
    heads; a full ring and one 3,000 slots filled) beside the plain
-   version, its bound over the visible pairs and SDPA with the same mask;
+   version, its bound over the visible pairs and SDPA with the same mask,
+   and under ``ring_dominant_keys`` four ring chunks of 512 in which one
+   key dominates the queries that may see it (just inside and just past
+   the window's edge, the last ring key before the wrap, an old position
+   the early queries still see), each within FLASH_BF16_STEPS of plain;
    the fused paged row, under ``ring``, the kernel over a ring's mask (B 4,
    4,096 slots, Mixtral's heads) beside SDPA with that mask.  Every row
    counts its launches in phases 3p, 3s, 7 and 8 (``launches_phase_3p``,
@@ -3564,8 +3569,8 @@ def flash_unsplit(torch, q, k, v, pos, kv_valid):
     out = torch.empty_like(q)
     err = FK._library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), kv_valid.data_ptr(), None,
-        out.data_ptr(), None, None, b, sq, k.shape[1], hp, k.shape[2], hd, 1, 0, p["tokens"], 1,
-        p["key_tiles"], torch.cuda.current_stream(q.device).cuda_stream)
+        None, out.data_ptr(), None, None, b, sq, k.shape[1], hp, k.shape[2], hd, 1, 0,
+        p["tokens"], 1, p["key_tiles"], torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise AssertionError(f"flash launch failed with CUDA error {err}")
     return out
@@ -3721,6 +3726,19 @@ RING_WINDOW_STEPS = 4
 # phase 6's ring chunk: the chunk's queries over [a full 4,096-slot ring]
 # ++ [the chunk], Mixtral's heads (32 q, 8 kv, hd 128), at two chunk sizes
 RING_CHUNKS = (512, 4096)
+# phase 6's ring chunk with one key that dominates every query that may see
+# it (its key a large multiple of a direction all queries share, its value
+# a constant far from the others'), at a chunk of RING_DOMINANT_CHUNK from
+# position 6,096 over the full ring of RING_CHUNKS' rows (4,096 slots after
+# 6,096 tokens: the wrap at slot 2,000, the window's edge at 6,096 - 4,095
+# for the chunk's first query): (case, the key's position).  A tile the sort
+# skips or takes whole by mistake moves the rows of that key by tens of bf16
+# steps.
+RING_DOMINANT_CHUNK = 512
+RING_DOMINANT = (("just inside the window edge", 2001),      # the first query's alone
+                 ("just past the window edge", 2000),        # no query's
+                 ("the last ring key before the wrap", 6095),  # slot 1,999: every query's
+                 ("an old position still seen by the early queries", 2100))  # 100 queries'
 # phase 6's paged attention over a ring: B 4, a 4,096-slot ring, Mixtral's
 # heads, the slots' lengths (two wrapped, one part-filled, one just full)
 RING_PAGED = (4, 4096, 8, 4, 128)
@@ -4181,6 +4199,68 @@ def ring_positions(torch, dev, b: int, w: int, ends) -> "torch.Tensor":
         p = torch.arange(max(0, end - w), end, device=dev, dtype=torch.int32)
         pos[i, p.long() % w] = p
     return pos
+
+
+def dominant_key_rows(position: int, chunk: int = RING_DOMINANT_CHUNK, w: int = 4096,
+                      start: int = 4096 + 2000) -> int:
+    """Queries of a ring chunk at start .. start + chunk - 1 (causal, window
+    w) that may see a key at ``position``."""
+    return sum(q - w < position <= q for q in range(start, start + chunk))
+
+
+def check_ring_dominant_keys(torch, dev) -> list:
+    """Phase 6's RING_DOMINANT cases: the flash kernel with key positions
+    against the plain version within FLASH_BF16_STEPS at each row's largest
+    magnitude, where one key dominates the rows that see it; the plain
+    rows that see it must be its value (the case tests what it names).
+    Launches here are left out of the counts."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    hp, hkv, hd, w, c = 32, 8, 128, 4096, RING_DOMINANT_CHUNK
+    start = w + 2000
+    gen = torch.Generator(device=dev).manual_seed(13)
+    ring = ring_positions(torch, dev, 1, w, (start,))
+    q_pos = (start + torch.arange(c, device=dev, dtype=torch.int32))[None].contiguous()
+    kv_pos = torch.cat([ring, q_pos], dim=1).contiguous()
+    kv_valid = torch.full((1,), start + c, dtype=torch.int32, device=dev)
+    u = torch.ones(hd, device=dev)
+    out = []
+    for case, position in RING_DOMINANT:
+        slot = position % w
+        if int(ring[0, slot]) != position:
+            raise AssertionError(f"phase 6: ring slot {slot} holds {int(ring[0, slot])}")
+        q = (torch.randn((1, c, hp, hd), generator=gen, device=dev) + 2 * u).to(torch.bfloat16)
+        k = torch.randn((1, w + c, hkv, hd), generator=gen, device=dev)
+        v = torch.randn((1, w + c, hkv, hd), generator=gen, device=dev)
+        k[0, slot] = 2 * u
+        v[0, slot] = 4.0
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        with uncounted():
+            got = FK.flash_attention(q, k, v, q_pos, kv_valid, causal=True, window=w,
+                                     kv_pos=kv_pos)
+            want = FR.flash_attention_ref(q, k, v, q_pos=q_pos, kv_valid=kv_valid, window=w,
+                                          kv_pos=kv_pos)
+            torch.cuda.synchronize()
+        seen = (q_pos[0] - w < position) & (position <= q_pos[0])
+        rows = int(seen.sum())
+        steps = row_bf16_steps(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        dominated = bool(((want[0, seen].float() - 4.0).abs() < 0.05).all()) if rows else True
+        log(f"phase 6: ring chunk of {c} with a dominant key {case} (position {position}, slot "
+            f"{slot}, seen by {rows} of {c} queries): {steps:.2f} bf16 steps from plain "
+            f"(tolerance {FLASH_BF16_STEPS}), max abs err {err:.3g}")
+        if rows != dominant_key_rows(position, c, w, start) or not dominated:
+            raise AssertionError(f"phase 6: the dominant-key case {case} does not dominate "
+                                 f"its {rows} rows")
+        if not (torch.isfinite(got.float()).all() and steps <= FLASH_BF16_STEPS):
+            raise AssertionError(f"phase 6: ring flash with a dominant key {case}: {steps:.2f} "
+                                 f"bf16 steps from the plain version")
+        out.append({"case": case, "position": position, "slot": slot, "rows_seeing": rows,
+                    "bf16_steps": steps, "max_abs_err": err})
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_ring_flash(torch, dev) -> list:
@@ -5049,20 +5129,30 @@ SUPERVISOR_STEPS, SUPERVISOR_EVERY, SUPERVISOR_FAIL, SUPERVISOR_B = 4, 2, 4, 2
 # dh_final nonzero): the Mamba2-1.3B and Zamba2-7B training micro-batches
 # (1 x 4,096 tokens, chunk 256), drawn float32 inputs at the models'
 # decays with b and c bf16-valued, as the models' are.  Each gradient
-# within its relative Frobenius bound: 3xTF32 products (about 2^-20 of a
-# product dropped) and other sum orders; dda, a reverse cumsum over the
-# chunk of row less column sums, collects more of that rounding.
+# within its relative Frobenius bound: TF32-pass products (about 2^-21 of
+# a product dropped where an operand is not a TF32 value) and other sum
+# orders; dda, a reverse cumsum over the chunk of row less column sums,
+# collects more of that rounding.  Two calls on the same inputs must give
+# the same bits (every sum in a fixed order).
 SSD_BWD_CASES = (("mamba2-1.3b train", (1, 4096, 64, 64, 128, 1), False),
                  ("zamba2-7b train", (1, 4096, 112, 64, 64, 2), True))
 SSD_BWD_FROBENIUS = {"dxdt": 1e-4, "dda": 1e-3, "db": 1e-4, "dc": 1e-4, "dh0": 1e-4}
 # the device kernels of one backward call (chunk sums, the pass over
-# chunks, column tiles, row tiles, dda, group sums)
+# chunks, column tiles (each tile pair's scores, once), row tiles, dda,
+# group sums)
 SSD_BWD_KERNELS = 6
 # TF32 passes of the backward's nine products, in ssd_bwd_work's order
-# (scores c.b, dy.xdt, dxdt's, db's and dc's intra parts, then the four
-# state products): the kernel takes three for each; the least the card
-# could take on bf16-valued b and c is one for the scores
-SSD_BWD_PASSES = (1,) + (3,) * 8
+# (scores c.b, dy.xdt, dxdt's, db's and dc's intra parts, then dxdt's G
+# term, db's G term, dc's h term and the reverse pass's input c (x) dy):
+# the fewest that keep each product's float32 sum on the models' inputs,
+# whose b and c are bf16 values, exact in TF32 (a product of two float32
+# operands takes three, one fewer for each exact operand); the kernel
+# takes these, picking its passes from the bits of the tiles it reads
+SSD_BWD_PASSES = (1, 3, 3, 2, 2, 2, 3, 3, 2)
+# the bound's count before it counted two passes for the products with
+# one exact operand (only the scores' single pass), for the share against
+# the bound PERF.md recorded before
+SSD_BWD_PASSES_SCORES_ONLY = (1,) + (3,) * 8
 # 9f: Mamba2-1.3B (all 48 layers) and Zamba2-7B (width in full, depth cut
 # to ZAMBA_TRAIN_SLOTS of its 81 slots: at 16 bytes a parameter, bf16
 # weights, float32 summed gradients, bf16 gradients and AdamW's two
@@ -5747,7 +5837,9 @@ def ssd_bwd_work(bsz: int, l: int, h: int, p: int, n: int, q: int, g: int,
     N for the scores c.b, 2 Q(Q+1)/2 P each for dy.xdt and dxdt's intra
     part, 2 Q(Q+1)/2 N each for db's and dc's, and 2 Q N P each for the
     four state products (dxdt's and db's G terms, dc's h term, the reverse
-    pass's input)."""
+    pass's input).  Each product counted once: the kernel computes each
+    tile pair's scores once.  SSD_BWD_PASSES gives the TF32 passes of each
+    on the models' inputs."""
     nc = l // q
     nbytes = 4 * (3 * bsz * l * h * p + 4 * bsz * l * g * n + 2 * bsz * h * l
                   + bsz * nc * h * n * p + (3 if with_dh else 1) * bsz * h * n * p)
@@ -5759,9 +5851,11 @@ def ssd_bwd_work(bsz: int, l: int, h: int, p: int, n: int, q: int, g: int,
 def check_ssd_bwd(torch, dev, cases=SSD_BWD_CASES, phase: str = "phase 9e") -> dict:
     """9e: at each case the forward kernel's workspaces, then the backward
     kernel against ``ref.ssd_bwd_ref`` on them: every gradient finite and
-    within SSD_BWD_FROBENIUS; the kernel timed (CUDA events, and the
-    profiler's device time of its six kernels) beside the plain backward's
-    events and both bounds.  Launches here are left out of the counts."""
+    within SSD_BWD_FROBENIUS, and a second call the same bits; the kernel
+    timed (CUDA events, and the profiler's device time of its six kernels)
+    beside the plain backward's events and the bounds (SSD_BWD_PASSES, and
+    the count before, SSD_BWD_PASSES_SCORES_ONLY).  Launches here are left
+    out of the counts."""
     from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.kernels.ssd import ref as SR
 
@@ -5771,6 +5865,9 @@ def check_ssd_bwd(torch, dev, cases=SSD_BWD_CASES, phase: str = "phase 9e") -> d
             xdt, da, b, c, h0, dy, dhf = ssd_bwd_case(torch, dev, shape, nonzero)
             _, hf, cum, states = SK.ssd(xdt, da, b, c, h0, chunk=q, workspaces=True)
             got = SK.ssd_bwd(xdt, b, c, dy, cum, states, hf, dhf, chunk=q)
+            again = SK.ssd_bwd(xdt, b, c, dy, cum, states, hf, dhf, chunk=q)
+            same_bits = all(torch.equal(u, v) for u, v in zip(got, again))
+            del again
             want = SR.ssd_bwd_ref(xdt, b, c, dy, dhf, cum, states, q)
             torch.cuda.synchronize()
             frob = {k: float((gr - w).norm() / w.norm())
@@ -5781,11 +5878,14 @@ def check_ssd_bwd(torch, dev, cases=SSD_BWD_CASES, phase: str = "phase 9e") -> d
             run = lambda i: SK.ssd_bwd(xdt, b, c, dy, cum, states, hf, dhf, chunk=q)  # noqa: E731
             plain = lambda i: SR.ssd_bwd_ref(xdt, b, c, dy, dhf, cum, states, q)  # noqa: E731
             k_ms = cuda_time_ms(run, iters=10)
-            k_dev = device_ms(run, "::ssd_bwd_", 10, SSD_BWD_KERNELS)
+            split = {re.search(r"ssd_bwd_\w+?_kernel", key).group(0): ms for key, ms in
+                     device_ms_by_kernel(run, "::ssd_bwd_", 10, SSD_BWD_KERNELS).items()}
+            k_dev = sum(split.values())
             p_ms = cuda_time_ms(plain, iters=2, warmup=1)
             bsz, l, h, p, n, g = shape
             nbytes, products = ssd_bwd_work(bsz, l, h, p, n, q, g, nonzero)
             bounds = ssd_bounds(nbytes, products, SSD_BWD_PASSES)
+            before = ssd_bounds(nbytes, products, SSD_BWD_PASSES_SCORES_ONLY)
             all3 = ssd_bounds(nbytes, products, (3,) * len(products))
             log(f"{phase}: ssd backward, {name} B L H P N G = {shape}, h0 and dh_final "
                 f"{'nonzero' if nonzero else 'zero'}: relative Frobenius "
@@ -5795,15 +5895,25 @@ def check_ssd_bwd(torch, dev, cases=SSD_BWD_CASES, phase: str = "phase 9e") -> d
                 f"{bounds['bound_ms']:.4f} ms by {bounds['bound_by']} ({bounds['bound_flops']} "
                 f"TF32 operations: passes {list(SSD_BWD_PASSES)} over {list(products)}; all "
                 f"3xTF32 {all3['bound_ms']:.4f} ms; {nbytes} B), "
-                f"{bounds['bound_ms'] / k_dev:.3f} of it; float32 CUDA-core bound "
-                f"{bounds['f32_bound_ms']:.4f} ms; plain {p_ms:.4f} ms (events)")
+                f"{bounds['bound_ms'] / k_dev:.3f} of it; against the bound with passes "
+                f"{list(SSD_BWD_PASSES_SCORES_ONLY)} {before['bound_ms']:.4f} ms, "
+                f"{before['bound_ms'] / k_dev:.3f} of it; float32 CUDA-core bound "
+                f"{bounds['f32_bound_ms']:.4f} ms; plain {p_ms:.4f} ms (events); two calls "
+                f"{'the same bits' if same_bits else 'DIFFERENT bits'}; device ms by kernel "
+                f"{ {k: round(v, 4) for k, v in split.items()} }")
             if not finite or any(frob[k] > SSD_BWD_FROBENIUS[k] for k in frob):
                 raise AssertionError(f"{phase}: the SSD backward kernel differs from plain "
                                      f"at {name}: {frob}")
+            if not same_bits:
+                raise AssertionError(f"{phase}: two calls of the SSD backward kernel at {name} "
+                                     f"gave different bits")
             out[name] = {"shape": list(shape), "chunk": q, "kernels_per_call": SSD_BWD_KERNELS,
                          "frobenius": frob, "max_abs_err": err, "ms": k_ms, "device_ms": k_dev,
                          "plain_ms": p_ms, **bounds, "bound_ms_3xtf32": all3["bound_ms"],
-                         "bound_share": bounds["bound_ms"] / k_dev}
+                         "bound_ms_scores_only": before["bound_ms"],
+                         "bound_share": bounds["bound_ms"] / k_dev,
+                         "bound_share_scores_only": before["bound_ms"] / k_dev,
+                         "same_bits": same_bits, "device_ms_by_kernel": split}
             del xdt, da, b, c, h0, dy, dhf, hf, cum, states
     return out
 
@@ -6115,6 +6225,7 @@ def main() -> int:
                                      prefill))
     mark("6.4 flash")
     kernels[-1]["ring"] = time_ring_flash(torch, dev)
+    kernels[-1]["ring_dominant_keys"] = check_ring_dominant_keys(torch, dev)
     next(k for k in kernels if k["name"] == "paged_attention_fused")["ring"] = \
         time_ring_paged(torch, dev)
     mark("6.5 ring")

@@ -77,11 +77,31 @@
 //   launch does the causal half of the work.  Tiles that no row masks take
 //   no per-element test; only tiles at the diagonal, the window edge or
 //   the kv_valid edge do.  exp is exp2 with log2(e) folded into the scale.
-//   Keys at their own positions (kv_pos) follow no index order: a block
-//   then visits every tile of its split and tests every key, its position
-//   read from kv_pos (a ring chunk sees nearly all of its window anyway).
-//   That is an instantiation of its own (POS), so the index path compiles
-//   as it did without it.
+// - Keys at their own positions (kv_pos; a sliding-window ring's slots ++
+//   the chunk) follow no index order, but a tile's positions are
+//   contiguous except at the ring's one wrap point.  A pre-pass kernel of
+//   the same call (flash_attention_key_bounds_kernel, one warp a tile)
+//   writes each batch row's and key tile's least and greatest filled
+//   position and whether the tile holds an unfilled slot (-1) or runs past
+//   Skv, into a workspace the wrapper allocates.  From those bounds and
+//   the block's query range every warp sorts a tile alike: skip (no row
+//   sees any of its keys), whole (every key filled, below kv_valid, at or
+//   before qmin, after qmax - window: no per-key test), or partial (every
+//   key tested).  A whole tile's scores are scaled before exp2 as a
+//   partial tile's visible ones are, not folded into exp2's argument as on
+//   the index path: a key's p then has the same bits in either class, and
+//   a skipped tile adds exact zeros, so at one split the result has the
+//   bits of every tile tested key by key (the served ring's greedy tokens
+//   and MoE routing do not move with the sort).  The producer walks the
+//   visited tiles in order (32 classified a ballot) and writes each
+//   stage's tile and class in a word beside its barriers; each visited
+//   tile's 128 positions come with its K by a 1-D TMA copy into 512 bytes
+//   beside the ring, so the per-key test reads shared memory.  In a ring chunk only the tiles at
+//   the window edge, the wrap and the diagonal are partial.  Split over
+//   keys, a block takes its share of the visited tiles (so that no split
+//   gets only skipped ones), not a range of tile indices.  That is an
+//   instantiation of its own (POS), so the index path compiles as it did
+//   without it.
 // - A row whose first visited tile holds no key it may see keeps m = -1e30;
 //   the next visible key's correction exp(-1e30 - m) = 0 wipes what it
 //   gathered.  A row that sees no key in any visited tile returns 0.
@@ -131,13 +151,17 @@ constexpr long long kGroupBytes = 24ll << 20;  // K and V of a group of units: h
 constexpr float kNegInf = -1e30f;
 constexpr double kLog2e = 1.4426950408889634;
 constexpr float kLn2 = 0.6931471805599453f;
-static_assert((1 + 4 * kMaxStages) * 8 + 4 <= kBarrierBytes, "the mbarriers and a word fit");
+constexpr int kHeaderAt = (1 + 4 * kMaxStages) * 8;  // a word a stage: its tile, its class
+constexpr int kBoundWarps = 8;  // warps of a key-bounds block, one a key tile
+static_assert(kHeaderAt + 4 * kMaxStages + 4 <= kBarrierBytes, "the mbarriers and words fit");
 
 struct Params {
   CUtensorMap q_map, k_map, v_map;  // 4-D: (hd, heads, tokens, B)
+  CUtensorMap pos_map;  // with kv_pos: 1-D over its B * Skv positions
   const int* q_pos;
   const int* kv_valid;
-  const int* kv_pos;  // null: a key's position is its index
+  const int4* bounds;  // with kv_pos: (B, key_tiles) least, greatest filled position, holes
+  int key_tiles;       // key tiles of Skv
   bf16* out;
   float* lse;  // null, or (B, Hp, Sq): each row's log-sum-exp in natural units
   float* ws;  // splits > 1: acc (splits, rows, hd), then (m, l) pairs (splits, rows)
@@ -152,15 +176,19 @@ struct Params {
 
 // Shared memory, from a kAlign-aligned base: the q tile (one slab of kRows
 // rows per 64 columns), then each ring stage's K and V tiles (one slab of
-// kKeys rows per 64 columns each), then the mbarriers: q | K full | V full
-// | K empty | V empty, each x stages.
-template <int HD>
+// kKeys rows per 64 columns each), with key positions each stage's kKeys
+// positions, then the mbarriers: q | K full | V full | K empty | V empty,
+// each x stages, and a header word a stage.
+template <int HD, bool POS>
 struct Smem {
   static constexpr int kSlabs = (HD + kSlab - 1) / kSlab;
   static constexpr int kQ = kSlabs * kRows * kRowBytes;
   static constexpr int kTile = kSlabs * kKeys * kRowBytes;
   static constexpr int kStage = 2 * kTile;
-  static constexpr int bytes(int stages) { return kAlign + kQ + stages * kStage + kBarrierBytes; }
+  static constexpr int kPos = POS ? kKeys * 4 : 0;
+  static constexpr int bytes(int stages) {
+    return kAlign + kQ + stages * (kStage + kPos) + kBarrierBytes;
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -190,6 +218,34 @@ __device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
+}
+
+// One TMA copy through the 1-D `map` of the box at c0 into dst, completing
+// its bytes on bar.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2}], [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int2 ld_shared_v2(uint32_t addr) {
+  int2 v;
+  asm volatile("ld.shared.v2.s32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // One TMA copy through the 4-D `map` of the box at (c0, c1, c2, c3) into
@@ -327,9 +383,33 @@ WGMMA_RS(128, R64, "{%64, %65, %66, %67}, %68", "%69", D8(0), D8(8), D8(16), D8(
 // The key tiles [begin, end) of a block's split that some row of the block
 // may see, and the block's query position range; every warp that needs
 // them computes them alike (its lanes stride over the block's tokens).
+// With key positions, [begin, end) are ordinals in the sequence of the
+// tiles the block visits (tile_class not kSkip), its split's share of it.
 struct Range {
   int begin, end, qmin, qmax, kv_end;
 };
+
+enum TileClass { kSkip = 0, kPartial = 1, kWhole = 2 };
+
+// A key tile at positions between bd.x and bd.y (the least and greatest
+// filled one; bd.z: an unfilled slot or a column past Skv) against the
+// block's query range: no row of the block may see any key of it (skip),
+// every row sees every key (whole), or neither (partial).
+__device__ __forceinline__ int tile_class(const int4 bd, const Range& r, const Params& p) {
+  const int lo = bd.x, hi = bd.y;
+  if (lo > hi || lo >= r.kv_end || (p.causal && lo > r.qmax) ||
+      (p.window > 0 && hi <= r.qmin - p.window))
+    return kSkip;
+  const bool whole = bd.z == 0 && hi < r.kv_end && (!p.causal || hi <= r.qmin) &&
+                     (p.window <= 0 || lo > r.qmax - p.window);
+  return whole ? kWhole : kPartial;
+}
+
+// Tile t's class for batch row b, or kSkip past the last tile.
+__device__ __forceinline__ int class_at(const Params& p, const Range& r, int b, int t) {
+  return t < p.key_tiles ? tile_class(__ldg(p.bounds + (size_t)b * p.key_tiles + t), r, p)
+                         : kSkip;
+}
 
 template <bool POS>
 __device__ __forceinline__ Range key_range(const Params& p, int b, int t0, int ntok, int split) {
@@ -348,18 +428,24 @@ __device__ __forceinline__ Range key_range(const Params& p, int b, int t0, int n
   Range r;
   r.qmin = __shfl_sync(0xffffffffu, qmin, 0);  // a broadcast: uniform to the compiler
   r.qmax = __shfl_sync(0xffffffffu, qmax, 0);
-  // the last split runs on to the end of the keys (the plan may cover only
-  // the tiles below a bound on kv_valid that the caller gave it)
-  const int cap = split + 1 < p.splits ? (split + 1) * p.tiles_per_split : INT_MAX;
-  if constexpr (POS) {  // positions in no index order: every tile of the split
+  if constexpr (POS) {  // the split's share of the visited tiles, by ordinal
+    // (p.tiles_per_split is not read)
     r.kv_end = p.kv_valid[b];
-    r.begin = split * p.tiles_per_split;
-    r.end = min((p.Skv + kKeys - 1) / kKeys, cap);
+    int visited = 0;
+    for (int t0 = 0; t0 < p.key_tiles; t0 += 32)
+      visited += __popc(__ballot_sync(0xffffffffu, class_at(p, r, b, t0 + lane) != kSkip));
+    // split s takes ordinals [s V / S, (s + 1) V / S): none is empty while
+    // V >= S
+    r.begin = split * visited / p.splits;
+    r.end = (split + 1) * visited / p.splits;
   } else {
     r.kv_end = max(0, min(p.kv_valid[b], p.Skv));
     int hi = r.kv_end;
     if (p.causal && qmax < hi) hi = qmax + 1;
     const int lo = p.window > 0 ? max(0, qmin - p.window + 1) : 0;
+    // the last split runs on to the end of the keys (the plan may cover
+    // only the tiles below a bound on kv_valid that the caller gave it)
+    const int cap = split + 1 < p.splits ? (split + 1) * p.tiles_per_split : INT_MAX;
     r.begin = max(lo / kKeys, split * p.tiles_per_split);
     r.end = hi > lo ? min((hi + kKeys - 1) / kKeys, cap) : 0;
   }
@@ -373,13 +459,16 @@ __device__ __forceinline__ Range key_range(const Params& p, int b, int t0, int n
 template <int HD, bool POS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel(const __grid_constant__ Params p) {
-  using L = Smem<HD>;
+  using L = Smem<HD, POS>;
   constexpr int kSlabs = L::kSlabs;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + kAlign - 1) & ~(uint32_t)(kAlign - 1);
   const uint32_t q_tile = base, ring = base + L::kQ;
-  const uint32_t bars = ring + p.stages * L::kStage;
+  const uint32_t pos_ring = ring + p.stages * L::kStage;
+  const uint32_t bars = pos_ring + p.stages * L::kPos;
   const uint32_t q_full = bars;
+  auto pos_tile = [&](int s) { return pos_ring + s * L::kPos; };
+  auto header = [&](int s) { return bars + kHeaderAt + 4 * s; };
   auto k_tile = [&](int s) { return ring + s * L::kStage; };
   auto v_tile = [&](int s) { return ring + s * L::kStage + L::kTile; };
   auto k_full = [&](int s) { return bars + 8 * (1 + s); };
@@ -424,13 +513,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int c = 0; c < kSlabs; ++c)
         tma_load(q_tile + c * kRows * kRowBytes, &p.q_map, c * kSlab, g * p.rep, t0, b, q_full);
     };
-    // ring slot i: key tile `tile`'s K and V, each once its stage is free
-    auto load_kv = [&](int i, int tile) {
+    // ring slot i: key tile `tile`'s K and V, each once its stage is free;
+    // with key positions also its class in the stage's header word and its
+    // positions beside the ring, both with K
+    auto load_kv = [&](int i, int tile, int cls) {
       const int s = i % p.stages;
       const uint32_t ready = ((i / p.stages) & 1) ^ 1;  // the first round passes at once
       const int key0 = tile * kKeys;
       wait_phase(k_empty(s), ready);
-      arrive_expect_tx(k_full(s), L::kTile);
+      if constexpr (POS) {
+        st_shared(header(s), (uint32_t)(tile * 2 + (cls == kWhole)));
+        arrive_expect_tx(k_full(s), L::kTile + L::kPos);
+        tma_load_1d(pos_tile(s), &p.pos_map, b * p.Skv + key0, k_full(s));
+      } else {
+        arrive_expect_tx(k_full(s), L::kTile);
+      }
       for (int c = 0; c < kSlabs; ++c)
         tma_load(k_tile(s) + c * kKeys * kRowBytes, &p.k_map, c * kSlab, g, key0, b, k_full(s));
       wait_phase(v_empty(s), ready);
@@ -438,19 +535,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int c = 0; c < kSlabs; ++c)
         tma_load(v_tile(s) + c * kKeys * kRowBytes, &p.v_map, c * kSlab, g, key0, b, v_full(s));
     };
-    // The q tile and, without a window (or with kv_pos), the split's first
-    // key tile do not depend on q_pos: they are issued before the key range
-    // is known, so that the q_pos loads are off the first tile's path.
-    const int first = split * p.tiles_per_split;
-    const bool early = p.window <= 0 || POS;
+    // The q tile and, without a window (and without kv_pos), the split's
+    // first key tile do not depend on q_pos: they are issued before the key
+    // range is known, so that the q_pos loads are off the first tile's path.
+    const bool early = p.window <= 0 && !POS;
     if (lane == 0) {
       load_q();
-      if (early) load_kv(0, first);
+      if (early) load_kv(0, split * p.tiles_per_split, kPartial);
     }
     const Range r = key_range<POS>(p, b, t0, ntok, split);
-    const int n = r.end - r.begin;  // with `early` and n > 0, r.begin == first
-    if (lane != 0) return;
+    // with `early` and n > 0, r.begin == split * p.tiles_per_split
+    const int n = r.end - r.begin;
     if (n == 0) {  // nothing to compute: the copies land before the block ends
+      if (lane != 0) return;
       wait_phase(q_full, 0);
       if (early) {
         wait_phase(k_full(0), 0);
@@ -458,7 +555,26 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       return;
     }
-    for (int i = early ? 1 : 0; i < n; ++i) load_kv(i, r.begin + i);
+    if constexpr (POS) {
+      // the lanes classify 32 tiles at a time; lane 0 loads the visited
+      // ones whose ordinal lies in the split's share
+      int o = 0;
+      for (int t0k = 0; t0k < p.key_tiles && o < r.end; t0k += 32) {
+        const int cls = class_at(p, r, b, t0k + lane);
+        uint32_t vis = __ballot_sync(0xffffffffu, cls != kSkip);
+        const uint32_t whole = __ballot_sync(0xffffffffu, cls == kWhole);
+        while (vis != 0u) {
+          const int bit = __ffs(vis) - 1;
+          vis &= vis - 1;
+          if (o >= r.begin && o < r.end && lane == 0)
+            load_kv(o - r.begin, t0k + bit, (whole >> bit) & 1u ? kWhole : kPartial);
+          ++o;
+        }
+      }
+      return;
+    }
+    if (lane != 0) return;
+    for (int i = early ? 1 : 0; i < n; ++i) load_kv(i, r.begin + i, kPartial);
     return;
   }
 
@@ -505,28 +621,38 @@ __global__ void __launch_bounds__(kThreads, 1)
   // Online softmax of tile i's scores, in log2 units: the running max and
   // sum, `corr` for what was gathered before, p in s.
   auto softmax = [&](int i) {
-    const int k0 = (r.begin + i) * kKeys;
-    const bool whole = !POS && k0 + kKeys <= r.kv_end &&
-                       (!p.causal || k0 + kKeys - 1 <= r.qmin) &&
-                       (p.window <= 0 || k0 > r.qmax - p.window);
-    // A whole tile keeps raw scores, and the scale is folded into exp2's
-    // argument; a masked tile is scaled here, its masked scores set to the
+    // with key positions the stage's header gives the tile and its class
+    const uint32_t hw = POS ? ld_shared(header(i % p.stages)) : 0u;
+    const int k0 = POS ? (int)(hw >> 1) * kKeys : (r.begin + i) * kKeys;
+    const bool whole = POS ? (hw & 1u) != 0u
+                           : k0 + kKeys <= r.kv_end && (!p.causal || k0 + kKeys - 1 <= r.qmin) &&
+                                 (p.window <= 0 || k0 > r.qmax - p.window);
+    // A whole tile of the index path keeps raw scores, and the scale is
+    // folded into exp2's argument (with key positions it is scaled here,
+    // as the header says); a masked tile is scaled here, its masked scores set to the
     // finite -1e30 (as in the plain version: a row that has seen only
     // masked keys then takes p = 1, which the first visible key's
     // correction wipes).
     float mx[2] = {kNegInf, kNegInf};
-    if constexpr (POS) {  // each key tested at its own position
-      const int* kpos = p.kv_pos + (size_t)b * p.Skv + k0 + 2 * tq;
+    if (POS && !whole) {  // a partial tile: each key tested at its own position
+      const uint32_t kpos = pos_tile(i % p.stages) + 8 * tq;
       const int left = p.Skv - k0 - 2 * tq;  // columns past it lie beyond Skv
 #pragma unroll
-      for (int e = 0; e < kKeys / 2; ++e) {
-        const int col = (e >> 2) * 8 + (e & 1);  // a constant once unrolled
-        const int kp = col < left ? __ldg(kpos + col) : -1;
-        const int qv = qp[(e >> 1) & 1];
-        const bool in = kp >= 0 && kp < r.kv_end && (!p.causal || kp <= qv) &&
-                        (p.window <= 0 || kp > qv - p.window);
-        s[e] = in ? s[e] * scale2 : kNegInf;
+      for (int j = 0; j < kKeys / 8; ++j) {
+        const int2 kp2 = ld_shared_v2(kpos + 32 * j);  // columns 8 j + 2 tq, + 1
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = 4 * j + u, col = 8 * j + (u & 1);  // constants once unrolled
+          const int kp = col < left ? ((u & 1) ? kp2.y : kp2.x) : -1;
+          const int qv = qp[(u >> 1) & 1];
+          const bool in = kp >= 0 && kp < r.kv_end && (!p.causal || kp <= qv) &&
+                          (p.window <= 0 || kp > qv - p.window);
+          s[e] = in ? s[e] * scale2 : kNegInf;
+        }
       }
+    } else if (POS) {  // a whole tile, scaled as a partial tile's visible keys are
+#pragma unroll
+      for (int e = 0; e < kKeys / 2; ++e) s[e] *= scale2;
     } else if (!whole) {  // row i2 sees keys [lo, hi), here as columns of the thread's tile
       int lo[2], hi[2];
       const int c0 = k0 + 2 * tq;
@@ -550,7 +676,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 #pragma unroll
     for (int e = 0; e < kKeys / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
-    const float sc = whole ? scale2 : 1.f;
+    const float sc = whole && !POS ? scale2 : 1.f;
     mx[0] *= sc;
     mx[1] *= sc;
 #pragma unroll
@@ -617,8 +743,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     issue_pv(prev, prev_p);
     wgmma_wait<1>();  // q . k^T of tile i is done; p . v may still run
     fence_regs(s);
-    if (lane == 0) arrive(k_empty(st));
+    // with key positions the softmax reads the stage's header and
+    // positions, which ride with K: the stage is freed after it
+    if (!POS && lane == 0) arrive(k_empty(st));
     softmax(i);
+    if (POS && lane == 0) arrive(k_empty(st));
     if constexpr (kPBufs == 1) {
       wgmma_wait<0>();
       fence_regs(o);
@@ -655,8 +784,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     issue_qk(0);
     wgmma_wait<0>();
     fence_regs(s);
-    if (lane == 0) arrive(k_empty(0));
+    if (!POS && lane == 0) arrive(k_empty(0));
     softmax(0);
+    if (POS && lane == 0) arrive(k_empty(0));
     pack_p(pa[0]);
     int i = 1;
     constexpr int j = kPBufs - 1;
@@ -749,6 +879,37 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   *reinterpret_cast<uint2*>(out + (size_t)row * HD + c) = v;
 }
 
+// Each (batch row, key tile)'s least and greatest filled position (>= 0;
+// INT_MAX and INT_MIN where there is none) and whether the tile holds an
+// unfilled slot (-1) or runs past Skv: one warp a tile, four positions a
+// lane, into bounds[b * tiles + tile].
+__global__ void __launch_bounds__(kBoundWarps * 32)
+    flash_attention_key_bounds_kernel(const int* __restrict__ kv_pos, int4* __restrict__ bounds,
+                                      int Skv, int tiles, int total) {
+  const int w = blockIdx.x * kBoundWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (w >= total) return;
+  const int b = w / tiles, k0 = (w % tiles) * kKeys;
+  int lo = INT_MAX, hi = INT_MIN, holes = 0;
+#pragma unroll
+  for (int c = lane; c < kKeys; c += 32) {
+    const int k = k0 + c;
+    const int v = k < Skv ? kv_pos[(size_t)b * Skv + k] : -1;
+    if (v < 0) {
+      holes = 1;
+    } else {
+      lo = min(lo, v);
+      hi = max(hi, v);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    holes |= __shfl_xor_sync(0xffffffffu, holes, o);
+  }
+  if (lane == 0) bounds[w] = make_int4(lo, hi, holes, 0);
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -787,15 +948,30 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int hd, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A 1-D map of n int32 positions, boxes of kKeys, no swizzle; what lies
+// past the end reads as zeros.
+bool encode_pos_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, long long n) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {4};  // read for dimensions past the first only
+  const cuuint32_t box[1] = {(cuuint32_t)kKeys};
+  const cuuint32_t step[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<void*>(ptr), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* q_pos, const void* kv_valid,
-           const void* kv_pos, void* out, void* lse, void* ws, int B, int Sq, int Skv, int Hp,
-           int Hkv, int causal, int window, int tokens, int splits, int tiles_per_split,
-           cudaStream_t stream) {
-  using L = Smem<HD>;
+           const void* kv_pos, void* bounds, void* out, void* lse, void* ws, int B, int Sq,
+           int Skv, int Hp, int Hkv, int causal, int window, int tokens, int splits,
+           int tiles_per_split, cudaStream_t stream) {
+  using L = Smem<HD, false>;
+  using LP = Smem<HD, true>;
+  const bool pos = kv_pos != nullptr;
   const int rep = Hp / Hkv;
   if (tokens < 1 || tokens * rep > kRows || splits < 1 || tiles_per_split < 1 ||
-      (splits > 1 && ws == nullptr))
+      (splits > 1 && ws == nullptr) || (pos && bounds == nullptr))
     return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
@@ -804,9 +980,12 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos, const
       !encode_map(encode, &p.k_map, k, HD, Hkv, Skv, B, 1, kKeys) ||
       !encode_map(encode, &p.v_map, v, HD, Hkv, Skv, B, 1, kKeys))
     return (int)cudaErrorInvalidValue;
+  p.key_tiles = (Skv + kKeys - 1) / kKeys;
+  if (pos && !encode_pos_map(encode, &p.pos_map, kv_pos, (long long)B * Skv))
+    return (int)cudaErrorInvalidValue;
   p.q_pos = static_cast<const int*>(q_pos);
   p.kv_valid = static_cast<const int*>(kv_valid);
-  p.kv_pos = static_cast<const int*>(kv_pos);
+  p.bounds = static_cast<const int4*>(bounds);
   p.out = static_cast<bf16*>(out);
   p.lse = static_cast<float*>(lse);
   p.ws = static_cast<float*>(ws);
@@ -819,13 +998,15 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos, const
   p.tokens = tokens;
   p.splits = splits;
   p.tiles_per_split = tiles_per_split;
-  p.stages = std::min(kMaxStages, (kSmemMax - L::bytes(0)) / L::kStage);
+  const int fixed = pos ? LP::bytes(0) : L::bytes(0);
+  const int per_stage = pos ? LP::kStage + LP::kPos : L::kStage;
+  p.stages = std::min(kMaxStages, (kSmemMax - fixed) / per_stage);
   p.causal = causal;
   p.window = window;
   p.scale2 = (float)(kLog2e / std::sqrt((double)HD));
-  const int smem = L::bytes(p.stages);
-  void (*kernel)(Params) = kv_pos != nullptr ? flash_attention_kernel<HD, true>
-                                             : flash_attention_kernel<HD, false>;
+  const int smem = fixed + p.stages * per_stage;
+  void (*kernel)(Params) = pos ? flash_attention_kernel<HD, true>
+                               : flash_attention_kernel<HD, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -833,6 +1014,13 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos, const
   const int units = Hkv * B * splits;
   const long long unit_bytes = 4ll * Skv * HD;  // K and V of one kv head of one batch row
   p.group = (int)std::max(1ll, std::min((long long)units, kGroupBytes / unit_bytes));
+  if (pos) {
+    const int total = B * p.key_tiles;
+    flash_attention_key_bounds_kernel<<<(total + kBoundWarps - 1) / kBoundWarps,
+                                        kBoundWarps * 32, 0, stream>>>(
+        static_cast<const int*>(kv_pos), static_cast<int4*>(bounds), Skv, p.key_tiles, total);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
   kernel<<<p.qtiles * units, kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
@@ -852,18 +1040,19 @@ extern "C" {
 // for a head_dim the kernel is not built for (a multiple of 16 up to 128) or
 // a plan it cannot take (kernel.py: plan gives tokens, splits and key tiles a
 // split; ws holds the splits' partials when splits > 1).  kv_pos is null, or
-// the keys' (B, Skv) int32 absolute positions; lse is null, or (B, Hp, Sq)
-// float32 for each row's log-sum-exp.
+// the keys' (B, Skv) int32 absolute positions, with bounds a (B, key tiles)
+// int4 workspace for the pre-pass; lse is null, or (B, Hp, Sq) float32 for
+// each row's log-sum-exp.
 int flash_attention_launch(const void* q, const void* k, const void* v, const void* q_pos,
-                           const void* kv_valid, const void* kv_pos, void* out, void* lse,
-                           void* ws, int B, int Sq, int Skv, int Hp, int Hkv, int hd, int causal,
-                           int window, int tokens, int splits, int tiles_per_split,
+                           const void* kv_valid, const void* kv_pos, void* bounds, void* out,
+                           void* lse, void* ws, int B, int Sq, int Skv, int Hp, int Hkv, int hd,
+                           int causal, int window, int tokens, int splits, int tiles_per_split,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(HD)                                                                      \
   case HD:                                                                                  \
-    return launch<HD>(q, k, v, q_pos, kv_valid, kv_pos, out, lse, ws, B, Sq, Skv, Hp, Hkv,    \
-                      causal, window, tokens, splits, tiles_per_split, s);
+    return launch<HD>(q, k, v, q_pos, kv_valid, kv_pos, bounds, out, lse, ws, B, Sq, Skv, Hp,  \
+                      Hkv, causal, window, tokens, splits, tiles_per_split, s);
   switch (hd) {
     FLASH_CASE(16)
     FLASH_CASE(32)

@@ -17,7 +17,11 @@ plan (:func:`plan`) comes from the shapes and, where the caller passes it,
 a host bound on kv_valid: q_pos and kv_valid stay on the device, and the
 wrapper reads no tensor's values.  When the keys are split, one C call
 launches the attention kernel and the kernel that merges the splits'
-float32 partials from the workspace; it counts as one launch.
+float32 partials from the workspace; it counts as one launch.  With key
+positions (``kv_pos``) the same C call first launches a pre-pass that
+writes each key tile's position bounds into an int32 workspace the wrapper
+allocates (:func:`key_bounds_shape`), from which the attention kernel sorts
+the tiles into skipped, whole and partial ones on the device.
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ def reset_launches() -> None:
 def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_launch.argtypes = [p] * 9 + [i] * 11 + [p]
+    lib.flash_attention_launch.argtypes = [p] * 10 + [i] * 11 + [p]
     lib.flash_attention_launch.restype = i
     return lib
 
@@ -93,7 +97,9 @@ def plan(b: int, sq: int, skv: int, hp: int, hkv: int, hd: int,
     blocks for each of the base ones, the keys are split as finely as one
     wave of blocks allows (at most one block an SM, MAX_SPLITS splits, one
     tile a split); ``blocks`` = base x splits.  Which tiles of a range a
-    block visits (the masks) is decided on the device."""
+    block visits (the masks) is decided on the device; with key positions
+    a split takes its share of the tiles the block visits, not a range, and
+    the kernel does not read ``tiles_per_split``."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS}")
     if hkv <= 0 or hp % hkv:
@@ -117,6 +123,12 @@ def plan(b: int, sq: int, skv: int, hp: int, hkv: int, hd: int,
             "tiles_per_split": per, "splits": splits, "blocks": base * splits}
 
 
+def key_bounds_shape(b: int, skv: int) -> tuple:
+    """The pre-pass's workspace with key positions: a batch row's and key
+    tile's (least, greatest filled position, holes, unused) int32."""
+    return (b, -(-skv // KEYS), 4)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, kv_valid: torch.Tensor, *,
                     causal: bool, window: int, valid: int | None = None,
@@ -125,7 +137,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     multiple of Hkv and at most 128 q heads a kv head; q_pos (B, Sq)
     int32; kv_valid (B,) int32; kv_pos, optional, (B, Skv) int32: the
     keys' absolute positions (-1 = unfilled), which the masks then test in
-    place of the keys' indices and which turn the tile skipping off; all
+    place of the keys' indices (tiles are skipped, taken whole or tested
+    key by key from their position bounds; ``ref.key_tile_classes``); all
     contiguous, 16-byte aligned, on one CUDA device; hd in
     :data:`HEAD_DIMS`.  ``valid``, where the caller knows it on the host,
     bounds kv_valid and shapes the launch plan (a larger kv_valid still
@@ -163,13 +176,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return (out, lse_t) if lse else out
     p = plan(bsz, sq, skv, hp, hkv, hd, valid)
+    bounds = None
+    if kv_pos is not None:
+        bounds = torch.empty(key_bounds_shape(bsz, skv), dtype=torch.int32, device=dev)
     ws = None
     if p["splits"] > 1:
         ws = torch.empty(p["splits"] * bsz * sq * hp * (hd + 2), dtype=torch.float32,
                          device=dev)
     err = _library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_valid.data_ptr(),
-        None if kv_pos is None else kv_pos.data_ptr(), out.data_ptr(),
+        None if kv_pos is None else kv_pos.data_ptr(),
+        None if bounds is None else bounds.data_ptr(), out.data_ptr(),
         None if lse_t is None else lse_t.data_ptr(), None if ws is None else ws.data_ptr(),
         bsz, sq, skv, hp, hkv, hd,
         int(bool(causal)), int(window), p["tokens"], p["splits"], p["tiles_per_split"],

@@ -18,6 +18,12 @@ import math
 import torch
 
 NEG_INF = -1e30
+#: keys of a tile of the kernel (kernel.KEYS)
+KEYS = 128
+#: key tile classes of the kernel with key positions (csrc/flash_attention.cu
+#: tile_class): no row of a block sees a key of the tile, every row sees
+#: every key, neither
+SKIP, PARTIAL, WHOLE = 0, 1, 2
 
 
 def kv_valid_rows(kv_valid, b: int, device) -> torch.Tensor:
@@ -136,3 +142,52 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, q_pos, kv_valid,
         dkh = torch.einsum("bhqk,bqhd->bkhd", dsb, qf)
         dk[:, c0:c0 + ck] = dkh.reshape(b, ck, hkv, rep, hd).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def key_tile_bounds(kv_pos, keys: int = KEYS) -> torch.Tensor:
+    """The kernel's pre-pass (``flash_attention_key_bounds_kernel``): for
+    each batch row and tile of ``keys`` keys, (least, greatest filled
+    position (>= 0), 1 if the tile holds an unfilled slot (< 0) or runs past
+    Skv else 0), (B, tiles, 3) int64; a tile with no filled key has least >
+    greatest (INT32_MAX, INT32_MIN)."""
+    b, skv = kv_pos.shape
+    tiles = -(-skv // keys)
+    pos = torch.full((b, tiles * keys), -1, dtype=torch.int64, device=kv_pos.device)
+    pos[:, :skv] = kv_pos.to(torch.int64)
+    pos = pos.view(b, tiles, keys)
+    filled = pos >= 0
+    lo = torch.where(filled, pos, torch.full_like(pos, 2**31 - 1)).amin(-1)
+    hi = torch.where(filled, pos, torch.full_like(pos, -2**31)).amax(-1)
+    return torch.stack([lo, hi, (~filled).any(-1).to(torch.int64)], dim=-1)
+
+
+def key_tile_classes(q_pos, kv_pos, kv_valid, causal: bool, window: int, tokens: int,
+                     keys: int = KEYS) -> torch.Tensor:
+    """The kernel's sort of key tiles with key positions
+    (``csrc/flash_attention.cu`` tile_class), in plain PyTorch: for each
+    batch row, block of ``tokens`` consecutive queries (the plan's
+    tokens a block) and tile of ``keys`` keys, SKIP where no query of the
+    block may see any key of the tile, WHOLE where every key is filled,
+    below kv_valid, at or before the block's least query position (causal)
+    and after its greatest less ``window``, else PARTIAL; (B, query blocks,
+    key tiles) int64.  From the tiles' bounds (:func:`key_tile_bounds`)
+    and the blocks' query ranges alone.  Tests use it; the kernel computes
+    it on the device."""
+    b, sq = q_pos.shape
+    blocks = -(-sq // tokens)
+    qp = q_pos.to(torch.int64)
+    last = qp[:, -1:].expand(b, blocks * tokens - sq)  # repeats a real query
+    qp = torch.cat([qp, last], dim=1).view(b, blocks, tokens)
+    qmin, qmax = qp.amin(-1)[..., None], qp.amax(-1)[..., None]  # (B, blocks, 1)
+    bd = key_tile_bounds(kv_pos, keys)[:, None]  # (B, 1, tiles, 3)
+    lo, hi, holes = bd[..., 0], bd[..., 1], bd[..., 2] != 0
+    end = kv_valid_rows(kv_valid, b, q_pos.device).to(torch.int64)[:, None, None]
+    skip = (lo > hi) | (lo >= end)
+    whole = ~holes & (hi < end)
+    if causal:
+        skip = skip | (lo > qmax)
+        whole = whole & (hi <= qmin)
+    if window > 0:
+        skip = skip | (hi <= qmin - window)
+        whole = whole & (lo > qmax - window)
+    return torch.where(skip, SKIP, torch.where(whole, WHOLE, PARTIAL))

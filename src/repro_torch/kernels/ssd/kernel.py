@@ -7,8 +7,9 @@ and ``csrc/ssd_bwd.cu`` (the backward), each built at first use by
 imported.  A forward call launches three kernels (chunk states, the pass
 over chunks, the outputs) and counts one ``"ssd"`` launch in
 :data:`LAUNCHES`; a backward call launches six (the chunks' gradient
-sums, the reverse pass over chunks, the column and row tiles, dda, the
-group sums) and counts one ``"ssd_bwd"`` launch.  The wrappers check their
+sums, the reverse pass over chunks, the column tiles, which compute each
+tile pair's scores once, the row tiles, dda, the group sums) and counts
+one ``"ssd_bwd"`` launch.  The wrappers check their
 inputs, allocate their outputs and workspaces with ``torch.empty``,
 launch on the current stream and raise if a launch did not happen.
 """
@@ -80,9 +81,15 @@ def plan(bsz: int, l: int, h: int, g: int, p: int, n: int, q: int) -> dict:
 def plan_bwd(bsz: int, l: int, h: int, g: int, p: int, n: int, q: int) -> dict:
     """The shapes of the backward's workspaces that follow from the shapes
     alone (D_c's partial sums also take the library's ``ssd_bwd_slices``
-    a chunk).  Raises ValueError on a shape the kernel cannot take (N and P
-    at most 128; its shared memory is the library's to say:
-    ``ssd_bwd_smem_bytes``, checked by the wrapper)."""
+    a chunk): G_{c+1} a chunk, db and dc a head, the row and column sums
+    of dcum, and what the column kernel hands the row kernel: each tile
+    pair's decayed dy.xdt tile (``score_tiles_shape``: pairs i >= j of the
+    chunk's TOKENS-token tiles, i (i + 1) / 2 + j, each TOKENS x TOKENS)
+    and each column tile's part of M's row sums (``row_part_shape``).
+    Raises ValueError on a shape the kernel cannot take (N and P at most
+    128, at most MAX_STATE_PIECES state pieces as in :func:`plan`; its
+    shared memory is the library's to say: ``ssd_bwd_smem_bytes``, checked
+    by the wrapper)."""
     if q <= 0 or l % q:
         raise ValueError(f"L={l} must be a positive multiple of chunk={q}")
     if g <= 0 or h % g:
@@ -91,8 +98,17 @@ def plan_bwd(bsz: int, l: int, h: int, g: int, p: int, n: int, q: int) -> dict:
         raise ValueError(f"N={n} and P={p} must be multiples of 4")
     if n > MAX_P or p > MAX_P:
         raise ValueError(f"N={n} and P={p} must be at most {MAX_P}")
-    return {"gst_shape": (bsz, l // q, h, n, p), "per_head_shape": (bsz, l, h, n),
-            "term_shape": (bsz, h, l)}
+    # the chunks' gradient sums hold N x P in 16 x 32 pieces, as the
+    # forward's chunk states do
+    state_pw = 32 * next(t for t in (1, 2, 4) if 32 * t >= p)
+    pieces = _round_up(n, 16) // 16 * (state_pw // 32)
+    if pieces > MAX_STATE_PIECES:
+        raise ValueError(f"N={n}, P={p} make {pieces} state pieces, above {MAX_STATE_PIECES}")
+    nc, nt = l // q, -(-q // TOKENS)
+    return {"gst_shape": (bsz, nc, h, n, p), "per_head_shape": (bsz, l, h, n),
+            "term_shape": (bsz, h, l),
+            "score_tiles_shape": (bsz, nc, h, nt * (nt + 1) // 2, TOKENS, TOKENS),
+            "row_part_shape": (bsz, nc, h, nt, q)}
 
 
 @functools.cache
@@ -110,7 +126,7 @@ def _library() -> ctypes.CDLL:
 def _library_bwd() -> ctypes.CDLL:
     lib = load(BWD_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_bwd_launch.argtypes = [p] * 19 + [i] * 7 + [p]
+    lib.ssd_bwd_launch.argtypes = [p] * 21 + [i] * 7 + [p]
     lib.ssd_bwd_launch.restype = i
     lib.ssd_bwd_smem_bytes.argtypes = [i, i, i, i]
     lib.ssd_bwd_smem_bytes.restype = ctypes.c_longlong
@@ -177,7 +193,9 @@ def ssd_bwd(xdt: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dy: torch.Tenso
     CUDA device; L a multiple of ``chunk``; N and P multiples of 4, at most
     128.  Returns (dxdt (B, L, H, P), dda (B, L, H), db, dc (B, L, G, N)
     summed over each group's heads, dh0 (B, H, N, P)), float32.  Every sum
-    runs in a fixed order: the same inputs give the same bits."""
+    runs in a fixed order: the same inputs give the same bits.  The TF32
+    passes of each product follow the bits of the b and c tiles it reads:
+    three on float32 operands, one fewer for each TF32-valued one."""
     dev = xdt.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
@@ -198,7 +216,7 @@ def ssd_bwd(xdt: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dy: torch.Tenso
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     lib = _library_bwd()
-    for which, name in enumerate(("chunk-grad", "tile")):
+    for which, name in enumerate(("chunk-grad", "column", "row")):
         smem = lib.ssd_bwd_smem_bytes(which, n, p, chunk)
         if smem > MAX_SMEM_BYTES:
             raise ValueError(f"N={n}, P={p}, chunk={chunk}: the {name} kernel needs {smem} B "
@@ -214,6 +232,7 @@ def ssd_bwd(xdt: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dy: torch.Tenso
     gst, dpart = empty(pl["gst_shape"]), empty((bsz, nc, h, lib.ssd_bwd_slices(n, p)))
     db_h, dc_h = empty(pl["per_head_shape"]), empty(pl["per_head_shape"])
     rowterm, colterm = empty(pl["term_shape"]), empty(pl["term_shape"])
+    escore, rowpart = empty(pl["score_tiles_shape"]), empty(pl["row_part_shape"])
     with_dh = dh_final is not None
     err = lib.ssd_bwd_launch(
         xdt.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(), cum.data_ptr(),
@@ -221,6 +240,7 @@ def ssd_bwd(xdt: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dy: torch.Tenso
         dh_final.data_ptr() if with_dh else None, dx.data_ptr(), dda.data_ptr(),
         db.data_ptr(), dc.data_ptr(), dh0.data_ptr(), gst.data_ptr(), db_h.data_ptr(),
         dc_h.data_ptr(), rowterm.data_ptr(), colterm.data_ptr(), dpart.data_ptr(),
+        escore.data_ptr(), rowpart.data_ptr(),
         bsz, l, h, g, p, n, chunk, torch.cuda.current_stream(dev).cuda_stream,
     )
     raise_on(err, "ssd_bwd")

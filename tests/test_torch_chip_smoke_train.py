@@ -158,18 +158,22 @@ def test_training_launches_at_full_width():
 
 
 @pytest.mark.parametrize("shape,with_dh,gops,bound", [
-    ((1, 4096, 64, 64, 128, 1), False, 51.674, 0.2783),
-    ((1, 4096, 112, 64, 64, 2), True, 52.760, 0.2893),
+    ((1, 4096, 64, 64, 128, 1), False, 51.674, 0.2261),
+    ((1, 4096, 112, 64, 64, 2), True, 52.760, 0.2436),
 ])
 def test_ssd_backward_bound_from_the_shapes(shape, with_dh, gops, bound):
     """The backward's work at 9e's shapes: nine products (three causal Q x Q
-    x N, two Q x Q x P, four Q x N x P a chunk and head), the scores at one
-    TF32 pass and the rest at three (0.313 and 0.320 ms all at three)."""
+    x N, two Q x Q x P, four Q x N x P a chunk and head) at the TF32 passes
+    the kernel takes on bf16-valued b and c: the scores one, the five
+    products with b or c two, the rest three (0.2783 and 0.2893 ms with
+    only the scores at fewer than three; 0.313 and 0.320 ms all at three)."""
     b, l, h, p, n, g = shape
     nbytes, products = C.ssd_bwd_work(b, l, h, p, n, 256, g, with_dh)
     assert abs(sum(products) / 1e9 - gops) < 1e-3
     bounds = C.ssd_bounds(nbytes, products, C.SSD_BWD_PASSES)
     assert bounds["bound_by"] == "operations" and abs(bounds["bound_ms"] - bound) < 1e-4
+    before = C.ssd_bounds(nbytes, products, C.SSD_BWD_PASSES_SCORES_ONLY)
+    assert abs(before["bound_ms"] - {False: 0.2783, True: 0.2893}[with_dh]) < 1e-4
 
 
 def test_plain_ssd_train_swaps_the_kernel_wrappers_and_restores_them():

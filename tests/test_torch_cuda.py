@@ -731,9 +731,38 @@ def test_cuda_flash_attention_with_key_positions_matches_plain(c, w, filled, hp,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [512, 16])
+def test_cuda_flash_attention_key_positions_two_rings_of_their_own(c):
+    """Two batch rows whose rings wrap at different slots (one full, one
+    part-filled) and whose kv_valid differ: each row's key tiles are sorted
+    from its own positions' bounds (at 16 queries the keys are split, each
+    split a share of the row's visited tiles); within FLASH_BF16_STEPS of
+    the plain version."""
+    dev = _cuda()
+    w, hp, hkv, hd = 1024, 32, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(c)
+    ends = (2000, 700)
+    ring = C.ring_positions(torch, dev, 2, w, ends)
+    q_pos = torch.stack([e + torch.arange(c, device=dev, dtype=torch.int32) for e in ends])
+    kv_pos = torch.cat([ring, q_pos], dim=1).contiguous()
+    kv_valid = torch.tensor([ends[0] + c, ends[1] + c - 3], dtype=torch.int32, device=dev)
+    q = torch.randn((2, c, hp, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((2, w + c, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((2, w + c, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    got = FK.flash_attention(q, k, v, q_pos.contiguous(), kv_valid, causal=True, window=w,
+                             kv_pos=kv_pos)
+    want = FR.flash_attention_ref(q, k, v, q_pos=q_pos, kv_valid=kv_valid, window=w,
+                                  kv_pos=kv_pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert C.row_bf16_steps(got, want) <= FLASH_BF16_STEPS
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_key_positions_in_index_order_match_the_index_path():
-    """kv_pos = arange(Skv) visits every tile with per-key tests; the
-    result stays within FLASH_BF16_STEPS of the index path's."""
+    """kv_pos = arange(Skv): the tiles sorted from their positions' bounds
+    skip and take whole what the index path does; the result stays within
+    FLASH_BF16_STEPS of the index path's."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(9)
     q = torch.randn((2, 256, 8, 64), generator=gen, device=dev).to(torch.bfloat16)

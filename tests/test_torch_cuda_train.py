@@ -220,6 +220,35 @@ def test_cuda_ssd_backward_matches_plain(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("exact", ["neither", "b", "c"])
+@pytest.mark.parametrize("shape", [SSD_SHAPES[0], SSD_SHAPES[1], (1, 512, 2, 128, 64, 1, 256, True),
+                                   (1, 256, 2, 32, 128, 2, 128, False)])
+def test_cuda_ssd_backward_pass_routes_match_plain(shape, exact):
+    """b and c drawn in float32 (every product three TF32 passes), or one of
+    them bf16-valued (the scores and the products with it two): each route
+    within SSD_BWD_FROBENIUS of the plain backward, two calls the same
+    bits; also at P 128.  The plain forward gives the workspaces."""
+    dev = _cuda()
+    xdt, da, b, c, h0, dy, dhf, q = _ssd_inputs(dev, shape, seed=3)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    if exact != "b":
+        b = b + torch.randn(b.shape, generator=gen, device=dev) * 1e-3
+    if exact != "c":
+        c = c + torch.randn(c.shape, generator=gen, device=dev) * 1e-3
+    _, hf, cum, states = (t.contiguous() for t in
+                          SR.ssd_chunked(xdt, da, b, c, h0, q, workspaces=True))
+    got = SK.ssd_bwd(xdt, b, c, dy, cum, states, hf, dhf, chunk=q)
+    want = SR.ssd_bwd_ref(xdt, b, c, dy, dhf, cum, states, q)
+    torch.cuda.synchronize()
+    for name, gr, w in zip(SSD_BWD_FROBENIUS, got, want):
+        assert bool(torch.isfinite(gr).all()), name
+        frob = float((gr - w).norm() / w.norm())
+        assert frob <= SSD_BWD_FROBENIUS[name], (name, exact, frob)
+    again = SK.ssd_bwd(xdt, b, c, dy, cum, states, hf, dhf, chunk=q)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.cuda
 def test_cuda_ssd_autograd_runs_both_kernels_once():
     """A differentiable scan on the card launches the forward once and, at
     backward, the backward kernel once; its gradients are the CPU

@@ -17,11 +17,14 @@ float32, sums in other orders) and of autograd's.  dda needs no more room:
 the closed form leaves M's diagonal out of both its row and column sums,
 where autodiff adds it to both and cancels it in float32.
 
-A mirror of the kernel's decomposition (column tiles: dxdt, db and the
-column terms; row tiles: dc and the row terms; the reverse pass's D_c =
-<G_{c+1}, h_{c+1}> in per-warp slices; dda as one reverse cumsum of row
-less column terms) in float64 equals the closed form to rounding, and the
-backward's launch plan is pure Python from the shapes alone.
+A mirror of the kernel's decomposition (column tiles: each tile pair's
+scores once, dxdt, db, the column terms, and for the row side M's sums
+down the columns and the decayed score tiles; row tiles: dc from those
+tiles and the row terms; the reverse pass's D_c = <G_{c+1}, h_{c+1}> in
+per-warp slices; dda as one reverse cumsum of row less column terms) in
+float64 equals the closed form to rounding and takes the TF32 passes the
+kernel's bit checks pick, and the backward's launch plan is pure Python
+from the shapes alone.
 """
 
 import numpy as np
@@ -148,14 +151,49 @@ def test_serving_calls_keep_the_forward_alone():
     assert y.grad_fn is None
 
 
+def _tf32_valued(t) -> bool:
+    """What the kernels check of a tile they read: every value a float32
+    whose low 13 mantissa bits are zero (a TF32 value, as bf16 values
+    are)."""
+    t32 = t.float()
+    return bool((t32.double() == t.double()).all()) and bool(
+        ((t32.view(torch.int32) & 0x1FFF) == 0).all())
+
+
+#: the backward's products, in the order of chip_smoke's ``ssd_bwd_work``:
+#: the Q x Q ones (the scores c.b, dy.xdt, dxdt's, db's and dc's intra
+#: parts), then the Q x N x P ones (dxdt's G term, db's G term, dc's h
+#: term, the reverse pass's input c (x) dy); with the operand of each that
+#: may be exact in TF32 ("b", "c", both or neither)
+PRODUCTS = (("scores", "bc"), ("dy.xdt", ""), ("dxdt intra", ""), ("db intra", "c"),
+            ("dc intra", "b"), ("dxdt state", "b"), ("db state", ""), ("dc inter", ""),
+            ("chunk grad", "c"))
+
+
+def _passes(b_exact: bool, c_exact: bool) -> tuple:
+    """The TF32 passes ``csrc/ssd_bwd.cu`` takes for each of
+    :data:`PRODUCTS` when the tiles of b and c it reads are (or are not)
+    TF32-valued, as bf16 values are: three for a product of two float32
+    operands (hi.hi, hi.lo, lo.hi), one fewer for each exact operand (its
+    lo is zero)."""
+    exact = {"b": b_exact, "c": c_exact}
+    return tuple(3 - sum(exact[o] for o in ops) for _, ops in PRODUCTS)
+
+
 def _kernel_mirror(xdt, b, c, dy, dhf, hfin, cum, states, q, tile=64):
     """csrc/ssd_bwd.cu's decomposition in plain PyTorch (float64): (a) the
-    chunks' sums exp(cum_i) c_i (x) dy_i, (b) the reverse pass (G_{c+1}, dh0,
-    D_c = <G_{c+1}, h_{c+1}> summed over per-warp slices), (c) column tiles
-    j: dxdt_j, per-head db_j and colterm_j over row tiles i >= j, (d) row
-    tiles i: per-head dc_i and rowterm_i over column tiles j <= i, (e) dda
-    as the reverse cumsum of rowterm - colterm plus D_c, and the group
-    sums in head order."""
+    chunks' sums c_i (x) exp(cum_i) dy_i, (b) the reverse pass (G_{c+1},
+    dh0, D_c = <G_{c+1}, h_{c+1}> summed over per-warp slices), (c) column
+    tiles j over row tiles i >= j: each tile pair's two score tiles once,
+    dxdt_j, per-head db_j and colterm_j from them, and for the row side M's
+    sums down the pair's columns (rowpart) and the decayed dy.xdt tile
+    (escore), (d) row tiles i: per-head dc_i from the inter part and
+    escore's tiles times b_j over j <= i, rowterm_i from the inter part and
+    rowpart in column-tile order, (e) dda as the reverse cumsum of rowterm
+    - colterm plus D_c, and the group sums in head order.  Each product
+    records the TF32 passes the kernel takes for it, from the tiles' bits
+    (a TF32-valued operand drops its lo pass): returns (gradients, {product:
+    set of passes})."""
     bsz, l, h, p = xdt.shape
     g, n = b.shape[-2:]
     nc, nt = l // q, -(-q // tile)
@@ -168,20 +206,31 @@ def _kernel_mirror(xdt, b, c, dy, dhf, hfin, cum, states, q, tile=64):
     slices = -(-np4 // 128) * 4
     dpart = torch.zeros((bsz, nc, h, slices), dtype=xdt.dtype)
     dh0 = torch.empty_like(states[:, 0])
+    routes = {name: set() for name, _ in PRODUCTS}
+
+    def prod(name, a, m, a_exact, m_exact):
+        routes[name].add(3 - int(a_exact) - int(m_exact))
+        return a @ m
+
     for bi in range(bsz):
         for hi in range(h):
             crow = cum[bi, hi]
-            for ci in range(nc):  # (a)
-                s = slice(ci * q, (ci + 1) * q)
-                gst[bi, ci, hi] = (ch[bi, s, hi] * torch.exp(crow[s])[:, None]).T @ dy[bi, s, hi]
+            for ci in range(nc):  # (a), a token tile at a time
+                gsum = torch.zeros((n, p), dtype=xdt.dtype)
+                for k in range(nt):
+                    s = slice(ci * q + k * tile, ci * q + min(q, (k + 1) * tile))
+                    ct = ch[bi, s, hi]
+                    gsum = gsum + prod("chunk grad", ct.T, torch.exp(crow[s])[:, None]
+                                       * dy[bi, s, hi], _tf32_valued(ct), False)
+                gst[bi, ci, hi] = gsum
             gv = torch.zeros((n, p), dtype=xdt.dtype) if dhf is None else dhf[bi, hi]
             hn = torch.zeros((n, p), dtype=xdt.dtype) if dhf is None else hfin[bi, hi]
             for ci in reversed(range(nc)):  # (b)
                 t_c = gst[bi, ci, hi].clone()
                 gst[bi, ci, hi] = gv
-                prod = (gv * hn).reshape(-1)
+                prod_ = (gv * hn).reshape(-1)
                 for w in range(slices):  # a warp's 32 threads x 4 elements
-                    dpart[bi, ci, hi, w] = prod[w * 128:(w + 1) * 128].sum()
+                    dpart[bi, ci, hi, w] = prod_[w * 128:(w + 1) * 128].sum()
                 gv = gv * torch.exp(crow[ci * q + q - 1]) + t_c
                 hn = states[bi, ci, hi]
             dh0[bi, hi] = gv
@@ -199,32 +248,39 @@ def _kernel_mirror(xdt, b, c, dy, dhf, hfin, cum, states, q, tile=64):
                     e = (crow[ri][:, None] - crow[rj][None, :]).masked_fill(jj > ii, 0.0)
                     return torch.exp(e).masked_fill(jj > ii, 0.0), ii == jj
 
+                escore, rowpart = {}, {}
                 for jt in range(nt):  # (c)
                     rj = rows_of(jt)
                     bj, xj = bh[bi, rj, hi], xdt[bi, rj, hi]
+                    b_ex = _tf32_valued(bj)
                     w = torch.exp(cq - crow[rj])[:, None]
-                    ax, ab = w * (bj @ gn), w * (xj @ gn.T)
+                    ax = w * prod("dxdt state", bj, gn, b_ex, False)
+                    ab = w * prod("db state", xj, gn.T, False, False)
                     col = (xj * ax).sum(-1)
                     for it in range(jt, nt):
                         ri = rows_of(it)
+                        ci_, yi = ch[bi, ri, hi], dy[bi, ri, hi]
+                        c_ex = _tf32_valued(ci_)
                         lm, eye = decay(ri, rj)
-                        s_ij = ch[bi, ri, hi] @ bj.T * lm
-                        e_ij = dy[bi, ri, hi] @ xj.T * lm
-                        ax = ax + s_ij.T @ dy[bi, ri, hi]
-                        ab = ab + e_ij.T @ ch[bi, ri, hi]
-                        col = col + (s_ij * (dy[bi, ri, hi] @ xj.T)).masked_fill(eye, 0.0).sum(0)
+                        s_ij = prod("scores", ci_, bj.T, c_ex, b_ex) * lm
+                        dp = prod("dy.xdt", yi, xj.T, False, False)
+                        e_ij = dp * lm
+                        ax = ax + prod("dxdt intra", s_ij.T, yi, False, False)
+                        ab = ab + prod("db intra", e_ij.T, ci_, False, c_ex)
+                        m = (s_ij * dp).masked_fill(eye, 0.0)
+                        col = col + m.sum(0)
+                        rowpart[it, jt], escore[it, jt] = m.sum(1), e_ij
                     dx[bi, rj, hi], db_h[bi, rj, hi], colterm[bi, hi, rj] = ax, ab, col
                 for it in range(nt):  # (d)
                     ri = rows_of(it)
                     ci_, yi = ch[bi, ri, hi], dy[bi, ri, hi]
-                    acc = torch.exp(crow[ri])[:, None] * (yi @ hc.T)
+                    acc = torch.exp(crow[ri])[:, None] * prod("dc inter", yi, hc.T, False, False)
                     row = (ci_ * acc).sum(-1)
                     for jt in range(it + 1):
-                        rj = rows_of(jt)
-                        lm, eye = decay(ri, rj)
-                        dp = yi @ xdt[bi, rj, hi].T
-                        acc = acc + (dp * lm) @ bh[bi, rj, hi]
-                        row = row + (ci_ @ bh[bi, rj, hi].T * lm * dp).masked_fill(eye, 0.0).sum(1)
+                        bj = bh[bi, rows_of(jt), hi]
+                        acc = acc + prod("dc intra", escore[it, jt], bj, False, _tf32_valued(bj))
+                    for jt in range(it + 1):
+                        row = row + rowpart[it, jt]
                     dc_h[bi, ri, hi], rowterm[bi, hi, ri] = acc, row
     dda = torch.empty((bsz, l, h), dtype=xdt.dtype)
     for bi in range(bsz):  # (e)
@@ -237,23 +293,35 @@ def _kernel_mirror(xdt, b, c, dy, dhf, hfin, cum, states, q, tile=64):
     rep = h // g
     db = db_h.reshape(bsz, l, g, rep, n).sum(3)
     dc = dc_h.reshape(bsz, l, g, rep, n).sum(3)
-    return dx, dda, db, dc, dh0
+    return (dx, dda, db, dc, dh0), routes
 
 
-@pytest.mark.parametrize("l,q,g,with_dh", [(256, 128, 1, True), (200, 100, 2, True),
-                                           (96, 96, 4, False)])
-def test_kernel_decomposition_mirror_equals_closed_form(l, q, g, with_dh):
+@pytest.mark.parametrize("l,q,g,with_dh,bc", [(256, 128, 1, True, "f32"),
+                                              (200, 100, 2, True, "f32"),
+                                              (96, 96, 4, False, "f32"),
+                                              (256, 128, 2, True, "bf16"),
+                                              (200, 100, 1, False, "b bf16")])
+def test_kernel_decomposition_mirror_equals_closed_form(l, q, g, with_dh, bc):
     """Tiles of 64 over chunks of 128, 100 (a ragged last tile) and 96;
     D_c from the pass's slices, where the closed form sums exp(cum_Q)
-    <G_{c+1}, h_c> and the w terms; float64."""
+    <G_{c+1}, h_c> and the w terms; float64.  b and c drawn (every product
+    three TF32 passes), both bf16-valued (the models' case: the scores one
+    pass, the products with b or c two) or b alone: the passes each
+    product took are :func:`_passes`'s for those bits."""
     xdt, da, b, c, h0, dy, dhf = (torch.from_numpy(z) for z in
                                   _draw(1, l, 4, 8, 12, g, seed=l, dtype=np.float64))
+    if bc != "f32":
+        b = b.bfloat16().double()
+    if bc == "bf16":
+        c = c.bfloat16().double()
     dhf = dhf if with_dh else None
     _, hfin, cum, states = SR.ssd_chunked(xdt, da, b, c, h0, q, workspaces=True)
     want = SR.ssd_bwd_ref(xdt, b, c, dy, dhf, cum, states, q)
-    got = _kernel_mirror(xdt, b, c, dy, dhf, hfin, cum, states, q)
+    got, routes = _kernel_mirror(xdt, b, c, dy, dhf, hfin, cum, states, q)
     for name, gr, w in zip(NAMES, got, want):
         assert _frob(gr, w) <= MIRROR_REL, (name, _frob(gr, w))
+    passes = _passes(bc != "f32", bc == "bf16")
+    assert [routes[name] for name, _ in PRODUCTS] == [{k} for k in passes]
 
 
 @pytest.mark.parametrize("shape", [
@@ -263,11 +331,18 @@ def test_kernel_decomposition_mirror_equals_closed_form(l, q, g, with_dh):
 ])
 def test_backward_plan_from_the_shapes(shape):
     """The workspaces the wrapper allocates from the shapes: G_{c+1} a
-    chunk, db and dc a head, the row and column sums of dcum."""
+    chunk, db and dc a head, the row and column sums of dcum, the tile
+    pairs' decayed score tiles (ten pairs of 64 x 64 at a 256-token chunk)
+    and the column tiles' parts of M's row sums."""
     pl = SK.plan_bwd(*shape)
     bsz, l, h, g, p, n, q = shape
+    nt = -(-q // 64)
     assert pl == {"gst_shape": (bsz, l // q, h, n, p), "per_head_shape": (bsz, l, h, n),
-                  "term_shape": (bsz, h, l)}
+                  "term_shape": (bsz, h, l),
+                  "score_tiles_shape": (bsz, l // q, h, nt * (nt + 1) // 2, 64, 64),
+                  "row_part_shape": (bsz, l // q, h, nt, q)}
+    if q == 256:
+        assert pl["score_tiles_shape"][3] == 10
 
 
 @pytest.mark.parametrize("args,match", [
@@ -275,6 +350,7 @@ def test_backward_plan_from_the_shapes(shape):
     ((1, 128, 4, 3, 8, 8, 64), "do not divide"),
     ((1, 128, 4, 1, 6, 8, 64), "multiples of 4"),
     ((1, 128, 4, 1, 8, 256, 64), "at most 128"),
+    ((1, 128, 4, 1, 128, 128, 64), "state pieces"),
 ])
 def test_backward_plan_refuses_what_the_kernel_cannot_take(args, match):
     with pytest.raises(ValueError, match=match):
